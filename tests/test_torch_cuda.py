@@ -47,49 +47,90 @@ def _check_fast(cuda):
     assert int((out > 0).sum()) > 100
 
 
+def _lk_close(got, want, p95_max=2e-2, agree_min=0.99):
+    """The reference's bound between its own LK backends: p95 < 2e-2 px
+    over mutually tracked points, >= 99% status agreement."""
+    (g, s), (g2, s2) = (got[0].cpu(), got[1].cpu()), (want[0].cpu(), want[1].cpu())
+    assert (s == s2).float().mean() >= agree_min
+    both = s & s2
+    d = torch.linalg.vector_norm(g[both] - g2[both], dim=1).numpy()
+    assert both.sum() > 0 and np.percentile(d, 95) < p95_max
+    return s2
+
+
 def _check_lk(cuda):
-    # The reference's bound between its own LK backends: p95 < 2e-2 px over
-    # mutually tracked points, >= 99% status agreement.
     img0, img1, pts = _textured_pair()
     p0 = pyramid.build_pyramid(torch.from_numpy(img0), 3)
     p1 = pyramid.build_pyramid(torch.from_numpy(img1), 3)
+    assert len(p0) == 4 and min(p0[-1].shape) >= 15 + 8   # every level tracked
     want = klt.pyramidal_lk(p0, p1, torch.from_numpy(pts), torch.from_numpy(pts))
     on = [[x.to(cuda) for x in p] for p in (p0, p1)]
+    before = klt.track_pyramid.launches
     got = klt.pyramidal_lk(*on, torch.from_numpy(pts).to(cuda), torch.from_numpy(pts).to(cuda))
-    (g, s), (g2, s2) = (got[0].cpu(), got[1].cpu()), want[:2]
-    assert s2.sum() > 60
-    assert (s == s2).float().mean() >= 0.99
-    both = s & s2
-    d = torch.linalg.vector_norm(g[both] - g2[both], dim=1).numpy()
-    assert np.percentile(d, 95) < 2e-2
+    assert klt.track_pyramid.launches == before + 1   # the 4-level walk in one launch
+    assert _lk_close(got, want).sum() > 60
     # lk_verify: both backward checks (pair A img1->img0 from the tracked
     # points, pair B img0->img1 from the seeds) in one launch.
     pts_t, g_t = torch.from_numpy(pts), got[0].cpu()
     want_v = klt.lk_verify(p1, p0, p0, p1, g_t, pts_t, pts_t, g_t)
+    before = klt.track_pyramid.launches
     got_v = klt.lk_verify(on[1], on[0], on[0], on[1], g_t.to(cuda), pts_t.to(cuda),
                           pts_t.to(cuda), g_t.to(cuda))
-    for (gv, sv, _), (wv, tv, _) in zip(got_v, want_v):
-        sv = sv.cpu()
-        assert (sv == tv).float().mean() >= 0.99
-        both = sv & tv
-        d = torch.linalg.vector_norm(gv.cpu()[both] - wv[both], dim=1).numpy()
-        assert both.sum() > 60 and np.percentile(d, 95) < 2e-2
+    assert klt.track_pyramid.launches == before + 1
+    for gv, wv in zip(got_v, want_v):
+        assert _lk_close(gv, wv).sum() > 60
 
 
-def _check_spd(cuda, F, m, atol, rtol):
+def _check_lk_border(cuda):
+    # Points on and near the image border at every level of the 4-level
+    # pyramid (d * 2^l px from an edge is d px at level l), tracked from
+    # guesses that push some of them out: clipped windows, zero-weight
+    # taps and lost tracks. Kernel and twin share every window and tap.
+    img0, img1, _ = _textured_pair(seed=6)
+    H, W = img0.shape
+    rng = np.random.default_rng(7)
+    pts = []
+    for lvl in range(4):
+        for d in (0.0, 0.5, 1.5, 3.0):
+            e = d * 2 ** lvl
+            x, y = rng.uniform(20, W - 20), rng.uniform(20, H - 20)
+            pts += [[e, y], [W - 1 - e, y], [x, e], [x, H - 1 - e]]
+    pts = np.asarray(pts, np.float32)
+    init = pts + rng.uniform(-3, 3, pts.shape).astype(np.float32)
+    p0 = pyramid.build_pyramid(torch.from_numpy(img0), 3)
+    p1 = pyramid.build_pyramid(torch.from_numpy(img1), 3)
+    g2, s2, e2 = klt.pyramidal_lk(p0, p1, torch.from_numpy(pts), torch.from_numpy(init))
+    g, s, e = (x.cpu() for x in klt.pyramidal_lk(
+        [x.to(cuda) for x in p0], [x.to(cuda) for x in p1],
+        torch.from_numpy(pts).to(cuda), torch.from_numpy(init).to(cuda)))
+    assert 0 < int(s2.sum()) < len(pts)
+    torch.testing.assert_close(s, s2, rtol=0, atol=0)
+    torch.testing.assert_close(g[s2], g2[s2], rtol=0, atol=1e-3)
+    torch.testing.assert_close(e[s2], e2[s2], rtol=0, atol=1e-3)
+
+
+def _check_spd(cuda, F, m, atol, rtol, n_active=None):
     # The reference's bounds between Gauss-Jordan and LAPACK
-    # (tests/test_spd_pallas.py): SPD systems H P H^T + s I.
-    rng = np.random.default_rng(m)
+    # (tests/test_spd_pallas.py): SPD systems H P H^T + s I, whose rows past
+    # each system's active count are s * I padding (skipped pivots).
+    rng = np.random.default_rng(m + F)
     D = 141
     A = rng.normal(size=(D, D)) * 0.05
     Hm = rng.normal(size=(F, m, D)) * 0.5
-    Hm *= (np.arange(m)[None, :] < rng.integers(4, m + 1, size=F)[:, None])[..., None]
+    if n_active is None:
+        n_active = rng.integers(4, m + 1, size=F)
+    Hm *= (np.arange(m)[None, :] < np.asarray(n_active).reshape(-1, 1))[..., None]
     B = Hm @ (A @ A.T) @ Hm.transpose(0, 2, 1) + 0.035 ** 2 * np.eye(m)
     B = torch.as_tensor((B + B.transpose(0, 2, 1)) / 2.0, dtype=torch.float32, device=cuda)
     R = torch.as_tensor(rng.normal(size=(F, m, 4)), dtype=torch.float32, device=cuda)
+    before = spd.spd_solve.launches
     got, want = spd.spd_solve(B, R), spd.spd_solve_plain(B, R)
-    scale = max(float(want.abs().max()), 1.0)
-    torch.testing.assert_close(got, want, atol=atol * scale, rtol=rtol)
+    assert spd.spd_solve.launches == before + 1
+    # Each row against its own magnitude: a padding row's X = R / s is ~1e3
+    # times a live row's, so one scale for the batch would let any live
+    # value pass.
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
+    assert torch.all((got - want).abs() <= atol * scale + rtol * want.abs())
 
 
 @pytest.mark.cuda
@@ -97,5 +138,15 @@ def test_kernels_match_twins(cuda):
     # One test item: see tests/test_torch_slice.py on xdist's file order.
     _check_fast(cuda)
     _check_lk(cuda)
+    _check_lk_border(cuda)
+    # The main path's two shapes (lost path, prune path), then edge cases:
+    # one system; an m that is not a multiple of the 16-wide thread tile;
+    # the 30-clone lost path (m=120, the larger register tile); all pivots
+    # padding (diagonal B) or all but one; no padding at all.
     _check_spd(cuda, 128, 80, 2e-3, 2e-3)
     _check_spd(cuda, 160, 8, 1e-4, 1e-3)
+    _check_spd(cuda, 1, 80, 2e-3, 2e-3)
+    _check_spd(cuda, 3, 76, 2e-3, 2e-3)
+    _check_spd(cuda, 8, 120, 2e-3, 2e-3)
+    _check_spd(cuda, 4, 80, 2e-3, 2e-3, n_active=[0, 1, 80, 2])
+    _check_spd(cuda, 5, 8, 1e-4, 1e-3, n_active=[0, 1, 8, 8, 3])

@@ -45,6 +45,7 @@ SIZES = dict(max_cam_state_size=6, max_features=32, max_lost_candidates=16)
 CFG = jconfig.euroc_config(filter=jconfig.FilterConfig(**SIZES))
 TCFG = tconfig.euroc_config(filter=tconfig.FilterConfig(**SIZES))
 SIM = SimConfig(duration=3.0, seed=1, max_features_per_frame=24)
+CPU = torch.device("cpu")   # the port defaults to "cuda"; these tests run on the CPU
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -74,7 +75,7 @@ def sim():
     carry, jouts = jax.jit(jk.run_sequence)(
         jk.init(init["q0"], init["bg0"], init["gravity"]),
         {k: jnp.asarray(v) for k, v in fr.items()})
-    tk = TMSCKF(TCFG)
+    tk = TMSCKF(TCFG, device=CPU)
     _, touts = tk.run_sequence(tk.init(init["q0"], init["bg0"], init["gravity"]),
                                {k: torch.as_tensor(v) for k, v in fr.items()})
     return dict(seq=seq, frames=frames, init=init, first=first, jouts=_np(jouts),
@@ -125,12 +126,12 @@ def _check_make_params_and_convert_roundtrip(sim):
     # Fresh states agree, and a converted JAX state round-trips exactly.
     jk = JMSCKF(CFG)
     fresh = _np(jk.init())
-    ours = TMSCKF(TCFG).init()
+    ours = TMSCKF(TCFG, device=CPU).init()
     for j, t in zip(fresh, ours):
         for name, a in convert.to_numpy_tree(t).items():
             np.testing.assert_array_equal(a, np.asarray(getattr(j, name)), err_msg=name)
     for tree in (sim["state"], sim["fmap"]):
-        back = convert.to_numpy_tree(convert.from_numpy_tree(tree))
+        back = convert.to_numpy_tree(convert.from_numpy_tree(tree, CPU))
         for name, a in back.items():
             np.testing.assert_array_equal(a, np.asarray(getattr(tree, name)), err_msg=name)
 
@@ -144,7 +145,7 @@ def _check_propagate_and_augment(sim):
     jstate_ = jax.tree_util.tree_map(jnp.asarray, sim["state"])
     jp, ja = jax.jit(lambda s, *a: (lambda p: (p, jaug.augment(p)))(
         jprop.propagate(s, sim["params"], *a)))(jstate_, *map(jnp.asarray, imu))
-    ts = convert.from_numpy_tree(sim["state"])
+    ts = convert.from_numpy_tree(sim["state"], CPU)
     tp = tprop.propagate(ts, sim["tparams"], *map(_t, imu))
     ta = taug.augment(tp)
     for j, t in ((jp, tp), (ja, ta)):
@@ -236,7 +237,7 @@ def _check_feature_gamma(sim, lost):
     # The port's own system builder agrees with the JAX one.
     Ht, _, _, rpt, _ = tupd.feature_system(
         _t(lost["pos"]), _t(lost["obs"]), _t(lost["ov"]), _t(lost["slots"]).long(),
-        convert.from_numpy_tree(sim["state"]), sim["tparams"])
+        convert.from_numpy_tree(sim["state"], CPU), sim["tparams"])
     np.testing.assert_allclose(Ht.numpy(), H, atol=1e-4 * np.abs(H).max())
     np.testing.assert_allclose(rpt.numpy(), rp, atol=1e-5)
 
@@ -246,7 +247,7 @@ def _check_stack_update_row_order(sim, lost):
     # f32 roundoff of the projection.
     Hj, rj, ij = lost["stack"]
     Ht, rt, it = tupd.stack_update(
-        convert.from_numpy_tree(sim["state"]), sim["tparams"], _t(lost["pos"]),
+        convert.from_numpy_tree(sim["state"], CPU), sim["tparams"], _t(lost["pos"]),
         _t(lost["obs"]), _t(lost["ov"]), _t(lost["slots"]).long(), _t(lost["process"]),
         _t(lost["dofs"]).long())
     np.testing.assert_array_equal(it.numpy(), ij)
@@ -312,8 +313,8 @@ def _check_online_reset_matches_jax(sim, fault):
     js, jf, jt = jax.jit(lambda s, f: j_online_reset(s, f, sim["params"]))(
         jax.tree_util.tree_map(jnp.asarray, st),
         jax.tree_util.tree_map(jnp.asarray, sim["fmap"]))
-    ts, tf, tt = t_online_reset(convert.from_numpy_tree(st),
-                                convert.from_numpy_tree(sim["fmap"]), sim["tparams"])
+    ts, tf, tt = t_online_reset(convert.from_numpy_tree(st, CPU),
+                                convert.from_numpy_tree(sim["fmap"], CPU), sim["tparams"])
     assert bool(tt) and bool(jt)
     for j, t in ((js, ts), (jf, tf)):
         for name, a in convert.to_numpy_tree(t).items():

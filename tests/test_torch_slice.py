@@ -9,6 +9,7 @@ most first, so a one-item file is handed out after the long end-to-end
 files have started and does not hold one of them back."""
 
 import ast
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -25,8 +26,12 @@ from vio_msckf_tpu.data.simulator import SimConfig, simulate_sequence, bundle_fr
 from vio_msckf_tpu.engine import VIOEngine as JEngine
 from vio_msckf_torch import config as tconfig
 from vio_msckf_torch import convert
+from vio_msckf_torch.data import render as trender_mod
 from vio_msckf_torch.data.render import render_sequence as trender
 from vio_msckf_torch.engine import VIOEngine as TEngine
+from vio_msckf_torch.filter import state as tstate
+from vio_msckf_torch.filter.msckf import MSCKF as TMSCKF
+from vio_msckf_torch.frontend.tracker import StereoTracker
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "vio_msckf_torch"
@@ -74,7 +79,7 @@ def workload():
     R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
     p = seq["gt_p"][first:first + n]
     j0, j1 = jrender(cfg, R, p, radius=14.0, seed=7, chunk=n)
-    t0, t1 = trender(tcfg, R, p, radius=14.0, seed=7)
+    t0, t1 = trender(tcfg, R, p, radius=14.0, seed=7, device="cpu")
     return dict(cfg=cfg, tcfg=tcfg, frames=frames, init=init, n=n,
                 jimg=(np.asarray(j0), np.asarray(j1)), timg=(t0.numpy(), t1.numpy()))
 
@@ -107,7 +112,7 @@ def _check_engine(workload):
     jc2, jo2 = run(jc1, second_half)
     jp = np.concatenate([np.asarray(jo1.p), np.asarray(jo2.p)])
 
-    te = TEngine(workload["tcfg"])
+    te = TEngine(workload["tcfg"], device="cpu")
     tf = dict(cam0_img=torch.from_numpy(workload["jimg"][0]),
               cam1_img=torch.from_numpy(workload["jimg"][1]),
               **{k: torch.as_tensor(v) for k, v in imu.items()})
@@ -123,7 +128,7 @@ def _check_engine(workload):
 
     # Resuming from the JAX carry (lane-row pyramid included) converted by
     # convert.from_numpy_tree gives the same second half.
-    carry = convert.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jc1))
+    carry = convert.from_numpy_tree(jax.tree_util.tree_map(np.asarray, jc1), device="cpu")
     _, to2 = te.run_sequence(carry, {k: v[half:2 * half] for k, v in tf.items()})
     np.testing.assert_allclose(to2.p.numpy(), np.asarray(jo2.p), atol=1e-4)
 
@@ -154,7 +159,24 @@ def _check_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+def _check_entry_points_default_to_cuda():
+    # The port runs on the card unless the caller asks for the CPU; with no
+    # CUDA device, building the engine raises PyTorch's own error instead of
+    # quietly making CPU tensors.
+    entry_points = (TEngine.__init__, TMSCKF.__init__, StereoTracker.__init__,
+                    tstate.make_params, tstate.init_feature_map,
+                    trender_mod.make_texture_basis, trender_mod.pixel_ray_lut,
+                    trender_mod.render_sequence, convert.from_numpy_tree)
+    for fn in entry_points:
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", f"{fn.__qualname__} defaults to {default!r}"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda|NVIDIA"):
+            TEngine(tconfig.euroc_config())
+
+
 def test_slice_matches_jax(workload):
+    _check_entry_points_default_to_cuda()
     _check_renderer(workload)
     _check_engine(workload)
     _check_port_never_imports_jax()

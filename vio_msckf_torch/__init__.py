@@ -19,7 +19,11 @@ reference the port is tested against. The layout mirrors it:
 
 Every kernel wrapper dispatches on the device of its input: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain PyTorch twin
-beside it. No module imports jax or the JAX package.
+beside it. The entry points that build state (VIOEngine, StereoTracker,
+MSCKF, make_params, init_feature_map, the renderer, from_numpy_tree) put
+it on "cuda" unless the caller passes another device; without a CUDA
+device they raise PyTorch's own error rather than fall back to the CPU.
+No module imports jax or the JAX package.
 """
 
 import torch

@@ -44,7 +44,7 @@ def _plain_pyramid(pyr, level_shapes, device):
     return out
 
 
-def from_numpy_tree(tree, device="cpu", level_shapes=None):
+def from_numpy_tree(tree, device="cuda", level_shapes=None):
     """Build the port's state from a numpy-leaved JAX state (see module
     docstring). `level_shapes` gives the (H, W) of each pyramid level and
     is needed for a TrackerState whose pyramid is in lane-row layout."""

@@ -6,16 +6,29 @@
 // Cholesky solve, what the JAX package runs off-TPU).
 //
 // What bounds it on an H100: latency, not FLOPs or bytes. The chi-square
-// gate solves F=128 systems of m=80 with k=4 right-hand sides (lost path,
-// ~0.3 MFLOP each) and F=160 systems of m=8 (prune path) per frame: far
-// too little work to fill 132 SMs for long, and each solve is a chain of m
-// dependent rank-1 updates. The design keeps a whole system resident in
-// shared memory (80 x 84 x 4 B = 27 KB), gives one CTA to each m=80 system
-// so all of them run concurrently, and packs several small systems into
-// one CTA (one 32-thread group each) so the m=8 launch is a handful of
-// CTAs. Each pivot step is two barriers: stage the pivot column and the
-// scaled pivot row, then update the trailing columns. Columns left of the
-// pivot never feed the right-hand block again, so they are not updated.
+// gate solves F=128 systems of m=80 with k=4 right-hand sides (lost path)
+// and F=160 systems of m=8 (prune path) per frame: ~1 us of bytes and
+// less of flops, while each solve is a chain of m dependent rank-1
+// updates. So the design cuts the time of one pivot step:
+//   - m > 8 (gj_block): one CTA of 16 x 16 threads per system. Thread
+//     (tr, tc) owns rows tr + 16a and columns tc + 16b of [B | R] in
+//     registers, a layout fixed at compile time, so the loop has no index
+//     division and no shared-memory read-modify-write. In a pivot step the
+//     owners of column i and of row i publish them to shared memory, one
+//     barrier follows, and every thread updates its trailing columns. The
+//     column/row buffers are double-buffered, so the next step's writes
+//     cannot race this step's reads.
+//   - m <= 8 (gj_warp): one warp per system, the 8 x 12 augmented system in
+//     registers (3 entries a lane); pivots, pivot rows and pivot columns
+//     travel by __shfl_sync. No shared memory, no block barrier.
+//   - A pivot whose row and column of B are zero off the diagonal (the
+//     s*I padding rows of the gate's systems) is skipped: such a step
+//     changes nothing but its own row's scale, which is applied at the end
+//     as the step would have (x * (1 / b_ii)). Exact for any B whose
+//     pivots are finite and nonzero, as an SPD B's are.
+// Columns left of the pivot never feed the right-hand block again, so
+// they are not updated. Every product and difference rounds on its own
+// (built with --fmad=false).
 //
 // No pivoting: B = H P H^T + s I is symmetric positive definite, where
 // elimination without pivoting is backward stable. On an indefinite B the
@@ -24,74 +37,192 @@
 
 #include <cuda_runtime.h>
 
+#include <utility>
+
 namespace {
 
-__global__ void spd_gj_kernel(const float* __restrict__ B,
-                              const float* __restrict__ R,
-                              float* __restrict__ X,
-                              int F, int m, int k, int spb) {
-    extern __shared__ float smem[];
+constexpr int T = 16;  // gj_block: a T x T thread grid per system
+
+// Pivot steps i = T * b + c, c = 0..T-1, of column group b. b is a
+// template parameter so that every register index below is a constant.
+template <int RA, int CB, int b>
+__device__ __forceinline__ void pivot_group(float (&A)[RA][CB], float (*s_col)[RA * T],
+                                            float (*s_row)[CB * T], const int* s_live,
+                                            int m, int tr, int tc, int& step) {
+#pragma unroll 1
+    for (int c = 0; c < T; ++c) {
+        const int i = T * b + c;
+        if (i >= m) break;
+        if (!s_live[i]) continue;
+        float* col = s_col[step & 1];
+        float* row = s_row[step & 1];
+        if (tc == c) {
+#pragma unroll
+            for (int a = 0; a < RA; ++a) col[tr + T * a] = A[a][b];
+        }
+        if (tr == c) {
+#pragma unroll
+            for (int bb = 0; bb < CB; ++bb) row[tc + T * bb] = A[b][bb];
+        }
+        __syncthreads();
+        const float inv = 1.0f / col[i];
+        float cr[RA];
+#pragma unroll
+        for (int a = 0; a < RA; ++a) cr[a] = col[tr + T * a];
+#pragma unroll
+        for (int bb = b; bb < CB; ++bb) {
+            if (bb == b && tc <= c) continue;  // columns <= i
+            const float rs = row[tc + T * bb] * inv;
+#pragma unroll
+            for (int a = 0; a < RA; ++a) {
+                if (a == b)  // row group of the pivot: row i itself takes rs
+                    A[a][bb] = tr == c ? rs : A[a][bb] - cr[a] * rs;
+                else
+                    A[a][bb] = A[a][bb] - cr[a] * rs;
+            }
+        }
+        ++step;
+    }
+}
+
+template <int RA, int CB, int... Bs>
+__device__ __forceinline__ void pivot_groups(float (&A)[RA][CB], float (*s_col)[RA * T],
+                                             float (*s_row)[CB * T], const int* s_live,
+                                             int m, int tr, int tc, int& step,
+                                             std::integer_sequence<int, Bs...>) {
+    (pivot_group<RA, CB, Bs>(A, s_col, s_row, s_live, m, tr, tc, step), ...);
+}
+
+template <int RA, int CB>
+__global__ void __launch_bounds__(T * T, 1) gj_block(const float* __restrict__ B,
+                                                 const float* __restrict__ R,
+                                                 float* __restrict__ X, int m,
+                                                 int k) {
+    __shared__ float s_col[2][RA * T];
+    __shared__ float s_row[2][CB * T];
+    __shared__ float s_diag[RA * T];
+    __shared__ int s_live[RA * T];  // pivot i has an off-diagonal nonzero
+
+    const int f = blockIdx.x;
+    const int tc = threadIdx.x % T, tr = threadIdx.x / T;
     const int w = m + k;
-    const int tps = blockDim.x / spb;            // threads per system
-    const int sys = threadIdx.x / tps;
-    const int lt = threadIdx.x % tps;
-    const int f = blockIdx.x * spb + sys;
-    const bool live = f < F;
+    const float* Bf = B + (size_t)f * m * m;
+    const float* Rf = R + (size_t)f * m * k;
 
-    float* aug = smem + (size_t)sys * (m * w + m + w);
-    float* col = aug + m * w;
-    float* row = col + m;
-
-    if (live) {
-        const float* Bf = B + (size_t)f * m * m;
-        const float* Rf = R + (size_t)f * m * k;
-        for (int e = lt; e < m * w; e += tps) {
-            const int r = e / w, c = e % w;
-            aug[e] = c < m ? Bf[r * m + c] : Rf[r * k + (c - m)];
+    if (threadIdx.x < RA * T) s_live[threadIdx.x] = 0;
+    float A[RA][CB];
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+        const int row = tr + T * a;
+#pragma unroll
+        for (int b = 0; b < CB; ++b) {
+            const int col = tc + T * b;
+            float v = 0.0f;
+            if (row < m && col < m) v = Bf[row * m + col];
+            else if (row < m && col < w) v = Rf[row * k + (col - m)];
+            A[a][b] = v;
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+        const int row = tr + T * a;
+#pragma unroll
+        for (int b = 0; b < CB; ++b) {
+            const int col = tc + T * b;
+            if (row == col) s_diag[row] = A[a][b];
+            else if (col < m && A[a][b] != 0.0f) s_live[row] = s_live[col] = 1;
         }
     }
     __syncthreads();
 
-    for (int i = 0; i < m; ++i) {
-        if (live) {
-            const float inv = 1.0f / aug[i * w + i];
-            for (int r = lt; r < m; r += tps) col[r] = aug[r * w + i];
-            for (int c = i + 1 + lt; c < w; c += tps) row[c] = aug[i * w + c] * inv;
+    int step = 0;
+    pivot_groups<RA, CB>(A, s_col, s_row, s_live, m, tr, tc, step,
+                         std::make_integer_sequence<int, RA>{});
+
+    float* Xf = X + (size_t)f * m * k;
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+        const int r = tr + T * a;
+#pragma unroll
+        for (int b = 0; b < CB; ++b) {
+            const int col = tc + T * b;
+            if (r < m && col >= m && col < w)
+                Xf[r * k + (col - m)] = s_live[r] ? A[a][b] : A[a][b] * (1.0f / s_diag[r]);
         }
-        __syncthreads();
-        if (live) {
-            const int nc = w - (i + 1);
-            for (int e = lt; e < m * nc; e += tps) {
-                const int r = e / nc, c = i + 1 + e % nc;
-                aug[r * w + c] = (r == i) ? row[c] : aug[r * w + c] - col[r] * row[c];
-            }
-        }
-        __syncthreads();
+    }
+}
+
+constexpr int WM = 8;       // gj_warp: rows
+constexpr int WC = 12;      // gj_warp: columns of [B | R]
+constexpr int WARPS = 4;    // gj_warp: systems per CTA
+
+__global__ void __launch_bounds__(32 * WARPS) gj_warp(const float* __restrict__ B,
+                                                    const float* __restrict__ R,
+                                                    float* __restrict__ X, int F,
+                                                    int m, int k) {
+    const int f = blockIdx.x * WARPS + threadIdx.x / 32;
+    if (f >= F) return;  // whole warp leaves; no block barrier follows
+    const int lane = threadIdx.x % 32;
+    const int r = lane / 4;     // this lane's row
+    const int c0 = lane % 4;    // its columns: c0, c0 + 4, c0 + 8
+    const int w = m + k;
+    const float* Bf = B + (size_t)f * m * m;
+    const float* Rf = R + (size_t)f * m * k;
+
+    float A[WC / 4];
+#pragma unroll
+    for (int j = 0; j < WC / 4; ++j) {
+        const int col = c0 + 4 * j;
+        float v = 0.0f;
+        if (r < m && col < m) v = Bf[r * m + col];
+        else if (r < m && col < w) v = Rf[r * k + (col - m)];
+        A[j] = v;
     }
 
-    if (live) {
-        float* Xf = X + (size_t)f * m * k;
-        for (int e = lt; e < m * k; e += tps) {
-            const int r = e / k, c = e % k;
-            Xf[e] = aug[r * w + m + c];
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+        if (i >= m) break;
+        // Element (row, col) lives in lane 4 * row + col % 4, register col / 4.
+        const float piv = __shfl_sync(0xffffffffu, A[i / 4], 4 * i + i % 4);
+        const float cr = __shfl_sync(0xffffffffu, A[i / 4], 4 * r + i % 4);
+        float rv[WC / 4];
+#pragma unroll
+        for (int j = 0; j < WC / 4; ++j) rv[j] = __shfl_sync(0xffffffffu, A[j], 4 * i + c0);
+        const float inv = 1.0f / piv;
+#pragma unroll
+        for (int j = 0; j < WC / 4; ++j) {
+            if (c0 + 4 * j <= i) continue;  // columns <= i
+            const float rs = rv[j] * inv;
+            A[j] = (r == i) ? rs : A[j] - cr * rs;
         }
+    }
+
+    float* Xf = X + (size_t)f * m * k;
+#pragma unroll
+    for (int j = 0; j < WC / 4; ++j) {
+        const int col = c0 + 4 * j;
+        if (r < m && col >= m && col < w) Xf[r * k + (col - m)] = A[j];
     }
 }
 
 }  // namespace
 
-// B (F, m, m), R (F, m, k), X (F, m, k), all contiguous f32. `spb` systems
-// share one CTA of `threads` threads (threads % spb == 0).
+// B (F, m, m), R (F, m, k), X (F, m, k), all contiguous f32. Takes m + k
+// <= 12 with m <= 8 (one warp a system), or m <= 80 with m + k <= 96, or
+// m <= 128 with m + k <= 144 (one CTA a system); other shapes return
+// cudaErrorInvalidValue.
 extern "C" int vio_spd_gj(const float* B, const float* R, float* X, int F,
-                          int m, int k, int spb, int threads, void* stream) {
-    const size_t smem = (size_t)spb * (m * (m + k) + m + (m + k)) * sizeof(float);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            spd_gj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+                          int m, int k, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (m <= WM && m + k <= WC) {
+        gj_warp<<<(F + WARPS - 1) / WARPS, 32 * WARPS, 0, s>>>(B, R, X, F, m, k);
+    } else if (m <= 5 * T && m + k <= 6 * T) {
+        gj_block<5, 6><<<F, T * T, 0, s>>>(B, R, X, m, k);
+    } else if (m <= 8 * T && m + k <= 9 * T) {
+        gj_block<8, 9><<<F, T * T, 0, s>>>(B, R, X, m, k);
+    } else {
+        return (int)cudaErrorInvalidValue;
     }
-    const int blocks = (F + spb - 1) / spb;
-    spd_gj_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(B, R, X, F, m,
-                                                                  k, spb);
     return (int)cudaGetLastError();
 }

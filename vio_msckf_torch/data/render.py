@@ -18,7 +18,7 @@ from vio_msckf_torch.ops.distortion import undistort_points
 
 
 def make_texture_basis(n_waves=24, radius=14.0, seed=0, min_wavelength_px=7.0,
-                       fx=458.0, device="cpu"):
+                       fx=458.0, device="cuda"):
     """Random sinusoid basis (omegas (n, 3), phases (n,), amps (n,)) with
     the projected wavelength kept >= min_wavelength_px at ~radius."""
     rng = np.random.default_rng(seed)
@@ -33,7 +33,7 @@ def make_texture_basis(n_waves=24, radius=14.0, seed=0, min_wavelength_px=7.0,
                  for a in (dirs * mags[:, None], phases, amps))
 
 
-def pixel_ray_lut(cam, device="cpu"):
+def pixel_ray_lut(cam, device="cuda"):
     """(H, W, 3) unit camera-frame rays of every pixel."""
     W, H = cam.resolution
     u, v = np.meshgrid(np.arange(W), np.arange(H))
@@ -60,7 +60,7 @@ def render_view(rays_lut, R_c_w, p_cam_w, texture, radius=14.0):
 
 
 def render_sequence(config: VIOConfig, R_w_i_stack, p_stack, radius=14.0, seed=0,
-                    chunk=16, device="cpu"):
+                    chunk=16, device="cuda"):
     """Render a pose sequence (R_w_i (N, 3, 3) world->IMU, p (N, 3) IMU
     position) in chunks of frames. Returns (cam0 (N,H,W), cam1 (N,H,W))
     f32 tensors on `device`."""

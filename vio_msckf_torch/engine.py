@@ -14,7 +14,7 @@ from vio_msckf_torch.frontend.tracker import StereoTracker
 
 
 class VIOEngine:
-    def __init__(self, config: VIOConfig, device="cpu", dtype=torch.float32):
+    def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32):
         self.config = config
         self.device = torch.device(device)
         self.tracker = StereoTracker(config, self.device)

@@ -178,7 +178,7 @@ class MSCKF:
         (state, fmap), out = kf.step((state, fmap), frame)
     """
 
-    def __init__(self, config: VIOConfig, device="cpu", dtype=torch.float32):
+    def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32):
         full_precision()
         self.config = config
         self.device = torch.device(device)

@@ -83,7 +83,7 @@ def chi2_table(size=100):
     return table
 
 
-def make_params(config: VIOConfig, device="cpu", dtype=torch.float32) -> MsckfParams:
+def make_params(config: VIOConfig, device="cuda", dtype=torch.float32) -> MsckfParams:
     """Build the filter's numeric constants from a config."""
     T01 = config.T_cn_cnm1_np
     n = config.noise
@@ -169,7 +169,7 @@ def init_filter_state(config: VIOConfig, params: MsckfParams, q0=None, bg0=None,
     )
 
 
-def init_feature_map(config: VIOConfig, device="cpu", dtype=torch.float32) -> FeatureMap:
+def init_feature_map(config: VIOConfig, device="cuda", dtype=torch.float32) -> FeatureMap:
     F = config.filter.max_features
     N = config.filter.max_cam_state_size
     return FeatureMap(

@@ -6,10 +6,10 @@ Port of vio_msckf_tpu/frontend/tracker.py. Per frame:
   -> FAST detection under an occupancy mask -> per-cell top-k birth
   -> per-cell lifetime cap -> publish normalized stereo measurements.
 
-Three hand kernels run here on a CUDA device: FAST + NMS once per frame
-(ops/fast.py:fast_nms), and the LK level kernel (ops/klt.py:track_level)
-for the temporal and stereo pyramids and the merged backward check.
-Pyramids are plain lists of (H, W) tensors. Unlike the JAX package the
+Two hand kernels run here on a CUDA device: FAST + NMS once per frame
+(ops/fast.py:fast_nms), and the LK pyramid kernel (ops/klt.py:track_pyramid)
+once each for the temporal and stereo pyramids and the merged backward
+check. Pyramids are plain lists of (H, W) tensors. Unlike the JAX package the
 candidate block is not padded to a multiple of 8 (a TPU layout need);
 the padded entries there were invalid and changed no result.
 """
@@ -49,7 +49,7 @@ class TrackerState(TensorRecord):
 class StereoTracker:
     """Functional front-end: `step(state, images, imu) -> (state, msg)`."""
 
-    def __init__(self, config: VIOConfig, device="cpu"):
+    def __init__(self, config: VIOConfig, device="cuda"):
         full_precision()
         self.config = config
         self.device = torch.device(device)

@@ -1,10 +1,10 @@
 """Build and load libvio_kernels.so, the port's hand-written CUDA kernels.
 
-The sources under csrc/ are compiled with nvcc for Hopper (sm_90a) into
-one shared library with a plain C interface, loaded with ctypes. The build
-runs at first use, into vio_msckf_torch/build/<source hash>/, so a fresh
-checkout builds itself and an edited source rebuilds. Nothing here runs
-at import time.
+The sources under csrc/ are compiled with nvcc for Hopper (sm_90a), one
+nvcc per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ctypes. The build runs at first use,
+into vio_msckf_torch/build/<source hash>/, so a fresh checkout builds
+itself and an edited source rebuilds. Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` turns a nonzero code into an exception.
@@ -25,7 +25,7 @@ BUILD = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -35,8 +35,8 @@ _F = ctypes.c_float
 # name -> argtypes; every function returns a CUDA error code (int).
 _SIGNATURES = {
     "vio_fast_nms": [_P, _P, _I, _I, _F, _P],
-    "vio_spd_gj": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vio_lk_level": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    "vio_spd_gj": [_P, _P, _P, _I, _I, _I, _P],
+    "vio_lk_pyramid": [_P] * 7 + [_I] * 4 + [_F, _F, _P],
 }
 
 _loaded = {}  # "lib" -> ctypes.CDLL; a loaded .so is process-wide anyway
@@ -72,27 +72,44 @@ def library_path():
     return BUILD / source_hash() / "libvio_kernels.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; wait for every one; raise on the first
+    that failed. Returns their output, concatenated."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build():
     """Compile csrc/*.cu unless the library for these sources exists.
 
-    Returns (path, seconds spent compiling, compiler log). The library is
-    written under a temporary name and renamed, so a concurrent or
-    interrupted build never leaves a half-written file behind."""
+    Returns (path, seconds spent compiling and linking, compiler log). The
+    objects and the library are written under names unique to this process
+    and the library is renamed into place, so a concurrent or interrupted
+    build never leaves a half-written file behind."""
     path = library_path()
     if path.exists():
         return path, 0.0, ""
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, pid = find_nvcc(), os.getpid()
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    objs = [path.with_name(f".{p.stem}.{pid}.o") for p in cus]
+    tmp = path.with_name(f".{path.name}.{pid}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                        for p, o in zip(cus, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
+    return path, seconds, log
 
 
 def lib():

@@ -11,10 +11,14 @@ image, and a bilinear tap outside that patch gets zero weight. Both the
 twin and the kernel compute the same window origins and drop the same
 taps.
 
-`track_level` is the kernel wrapper: a CUDA tensor launches
-csrc/lk_level.cu (counted in `track_level.launches`), a CPU tensor runs
-`track_level_plain`, the PyTorch twin.
+`track_pyramid` is the kernel wrapper: on CUDA tensors it launches
+csrc/lk_pyramid.cu once for the whole level walk (counted in
+`track_pyramid.launches`); on CPU tensors it runs `track_pyramid_plain`,
+the PyTorch twin, which walks the levels with `track_level_plain`.
+`pyramidal_lk` and `lk_verify` are both one `track_pyramid` call.
 """
+
+import ctypes
 
 import torch
 
@@ -23,6 +27,20 @@ from vio_msckf_torch import kernels
 _PAD = 16          # edge padding on every side, in pixels
 _NY = 48           # moving window rows and columns
 _MAX_MOVE = 12.0   # per-level displacement margin (px)
+_MAX_LEVELS = 8    # csrc/lk_pyramid.cu: MAX_LEVELS
+_MAX_WIN = 15      # csrc/lk_pyramid.cu: MAX_WIN
+
+
+class _LKPyramid(ctypes.Structure):
+    """csrc/lk_pyramid.cu's LKPyramid: the level images of one call,
+    passed to the kernel by value."""
+
+    _fields_ = [("prev", ctypes.c_void_p * (2 * _MAX_LEVELS)),
+                ("next", ctypes.c_void_p * (2 * _MAX_LEVELS)),
+                ("H", ctypes.c_int * _MAX_LEVELS),
+                ("W", ctypes.c_int * _MAX_LEVELS),
+                ("run", ctypes.c_int * _MAX_LEVELS),
+                ("levels", ctypes.c_int)]
 
 
 def _lane_blocks(W):
@@ -103,9 +121,10 @@ def track_level_plain(prev, nxt, sel, pts_prev, guess, win, iters, eps,
 
     prev / nxt: (B, H, W) stacks of level images; sel (P,) int64 picks each
     feature's image. pts_prev / guess: (P, 2) at this level's scale.
-    Returns (guess (P, 2), ok (P,), lost (P,), err (P,)). The Newton loop
-    is masked: a converged feature stops changing, so the result is the
-    reference's per-feature early exit."""
+    Returns (guess (P, 2), ok (P,), lost (P,), err (P,), n_iter (P,) int32:
+    the Newton iterations each feature ran). The Newton loop is masked: a
+    converged feature stops changing, so the result is the reference's
+    per-feature early exit."""
     _, H, W = prev.shape
     dt = torch.float32
     pts_prev = pts_prev.to(dt)
@@ -141,6 +160,7 @@ def track_level_plain(prev, nxt, sel, pts_prev, guess, win, iters, eps,
     g = g0
     converged = ~ok
     lost = torch.zeros_like(ok)
+    n_iter = torch.zeros(ok.shape, dtype=torch.int32, device=ok.device)
     for _ in range(iters):
         if not bool(torch.any(~converged)):
             break
@@ -150,65 +170,110 @@ def track_level_plain(prev, nxt, sel, pts_prev, guess, win, iters, eps,
         by = torch.sum(dI * Iy, dim=(1, 2))
         nu = torch.stack([(Gyy * bx - Gxy * by) / det_safe,
                           (Gxx * by - Gxy * bx) / det_safe], dim=-1)
+        n_iter = n_iter + (~converged).to(torch.int32)
         lost = lost | (~converged & ~in_marg)
         g = torch.where((~converged & in_marg)[:, None], g + nu, g)
         converged = converged | (torch.sum(nu * nu, dim=-1) < eps * eps) | ~in_marg
 
     err = torch.mean(torch.abs(I - window_j(g)), dim=(1, 2))
-    return g, ok, lost, err
+    return g, ok, lost, err, n_iter
 
 
-def track_level(prev_a, next_a, pts_prev, guess, win, iters, eps,
-                min_eig_threshold, prev_b=None, next_b=None, img_idx=None):
-    """One LK level. Features with img_idx == 1 track prev_b -> next_b,
-    the rest prev_a -> next_a (lk_verify's two image pairs).
+def track_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
+                        min_eig_threshold, pyr_prev_b=None, pyr_next_b=None,
+                        n_first=None, min_size=None):
+    """The pyramid walk in PyTorch, level by level with `track_level_plain`.
 
-    CUDA tensors launch the kernel; CPU tensors run `track_level_plain`."""
-    if prev_b is None:
-        prev_b, next_b = prev_a, next_a
-    if not prev_a.is_cuda:
-        if img_idx is None:
-            sel = torch.zeros(pts_prev.shape[0], dtype=torch.int64)
-            prev, nxt = prev_a[None], next_a[None]
-        else:
-            sel = img_idx.to(torch.int64)
-            prev, nxt = torch.stack([prev_a, prev_b]), torch.stack([next_a, next_b])
-        return track_level_plain(prev, nxt, sel, pts_prev, guess, win, iters,
-                                 eps, min_eig_threshold)
-
-    H, W = prev_a.shape
+    Features [0, n_first) track pyr_prev -> pyr_next, the rest pyr_prev_b
+    -> pyr_next_b (all of them track pair A when n_first is None). Levels
+    whose min(H, W) < min_size (default win + 8) are skipped, as cv2 caps
+    maxLevel by image size. Returns (pts (P, 2), status (P,), err (P,),
+    n_iter (P,) int32: Newton iterations summed over the levels)."""
     P = pts_prev.shape[0]
-    if win % 2 != 1 or win > 15:
-        raise ValueError(f"lk_level kernel takes an odd window <= 15, got {win}")
-    for name, t in (("prev_a", prev_a), ("prev_b", prev_b),
-                    ("next_a", next_a), ("next_b", next_b)):
-        kernels.require(t, f"track_level {name}", torch.float32, (H, W))
+    dev = pts_prev.device
+    if min_size is None:
+        min_size = win + 8
+    if n_first is None:
+        sel = torch.zeros(P, dtype=torch.int64, device=dev)
+    else:
+        sel = (torch.arange(P, device=dev) >= n_first).to(torch.int64)
+    levels = len(pyr_prev) - 1
+    guess = pts_init / (2.0 ** levels)
+    status = torch.ones(P, dtype=torch.bool, device=dev)
+    err = torch.zeros(P, dtype=torch.float32, device=dev)
+    n_iter = torch.zeros(P, dtype=torch.int32, device=dev)
+    for lvl in range(levels, -1, -1):
+        H, W = pyr_prev[lvl].shape
+        if min(H, W) >= min_size:
+            prev, nxt = pyr_prev[lvl][None], pyr_next[lvl][None]
+            if n_first is not None:
+                prev = torch.stack([pyr_prev[lvl], pyr_prev_b[lvl]])
+                nxt = torch.stack([pyr_next[lvl], pyr_next_b[lvl]])
+            guess, ok, lost, err, n = track_level_plain(
+                prev, nxt, sel, pts_prev / (2.0 ** lvl), guess, win, iters, eps,
+                min_eig_threshold)
+            n_iter = n_iter + n
+            status = status & ~lost
+            if lvl == 0:
+                status = status & ok
+        if lvl != 0:
+            guess = guess * 2.0
+    H, W = pyr_next[0].shape
+    return guess, status & _in_image(guess, H, W), err, n_iter
+
+
+def track_pyramid(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
+                  min_eig_threshold, pyr_prev_b=None, pyr_next_b=None,
+                  n_first=None, min_size=None):
+    """The LK level walk of `track_pyramid_plain` (same arguments and
+    results) as one kernel launch on CUDA tensors; CPU tensors run the
+    twin."""
+    if not pts_prev.is_cuda:
+        return track_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, win, iters,
+                                   eps, min_eig_threshold, pyr_prev_b, pyr_next_b,
+                                   n_first, min_size)
+    P = pts_prev.shape[0]
+    L = len(pyr_prev)
+    if win % 2 != 1 or win > _MAX_WIN:
+        raise ValueError(f"lk_pyramid kernel takes an odd window <= {_MAX_WIN}, got {win}")
+    if not 1 <= L <= _MAX_LEVELS:
+        raise ValueError(f"lk_pyramid kernel takes 1..{_MAX_LEVELS} levels, got {L}")
+    if min_size is None:
+        min_size = win + 8
+    if n_first is None:
+        n_first, pyr_prev_b, pyr_next_b = P, pyr_prev, pyr_next
+    desc = _LKPyramid(levels=L)
+    for lvl in range(L):
+        H, W = pyr_prev[lvl].shape
+        for pair, pyrs in enumerate(((pyr_prev, pyr_next), (pyr_prev_b, pyr_next_b))):
+            for name, pyr in zip(("prev", "next"), pyrs):
+                kernels.require(pyr[lvl], f"track_pyramid {name} level {lvl}",
+                                torch.float32, (H, W))
+                getattr(desc, name)[pair * _MAX_LEVELS + lvl] = pyr[lvl].data_ptr()
+        desc.H[lvl], desc.W[lvl] = H, W
+        desc.run[lvl] = int(min(H, W) >= min_size)
     pts_prev = pts_prev.to(torch.float32).contiguous()
-    guess = guess.to(torch.float32).contiguous()
-    kernels.require(pts_prev, "track_level pts_prev", torch.float32, (P, 2))
-    kernels.require(guess, "track_level guess", torch.float32, (P, 2))
-    if img_idx is not None:
-        kernels.require(img_idx, "track_level img_idx", torch.int32, (P,))
-    g_out = torch.empty_like(guess)
-    ok = torch.empty(P, dtype=torch.bool, device=guess.device)
-    lost = torch.empty(P, dtype=torch.bool, device=guess.device)
-    err = torch.empty(P, dtype=torch.float32, device=guess.device)
+    pts_init = pts_init.to(torch.float32).contiguous()
+    kernels.require(pts_prev, "track_pyramid pts_prev", torch.float32, (P, 2))
+    kernels.require(pts_init, "track_pyramid pts_init", torch.float32, (P, 2))
+    dev = pts_prev.device
+    pts = torch.empty_like(pts_prev)
+    status = torch.empty(P, dtype=torch.bool, device=dev)
+    err = torch.empty(P, dtype=torch.float32, device=dev)
+    n_iter = torch.empty(P, dtype=torch.int32, device=dev)
     if P == 0:
-        return g_out, ok, lost, err
-    code = kernels.lib().vio_lk_level(
-        kernels.ptr(prev_a), kernels.ptr(prev_b),
-        kernels.ptr(next_a), kernels.ptr(next_b),
-        None if img_idx is None else kernels.ptr(img_idx),
-        kernels.ptr(pts_prev), kernels.ptr(guess), kernels.ptr(g_out),
-        kernels.ptr(ok), kernels.ptr(lost), kernels.ptr(err),
-        P, H, W, _lane_blocks(W), win, iters, float(eps * eps),
-        float(min_eig_threshold), kernels.stream_ptr(guess))
-    kernels.check(code, "vio_lk_level")
-    track_level.launches += 1
-    return g_out, ok, lost, err
+        return pts, status, err, n_iter
+    code = kernels.lib().vio_lk_pyramid(
+        ctypes.byref(desc), kernels.ptr(pts_prev), kernels.ptr(pts_init),
+        kernels.ptr(pts), kernels.ptr(status), kernels.ptr(err), kernels.ptr(n_iter),
+        P, int(n_first), win, iters, float(eps * eps), float(min_eig_threshold),
+        kernels.stream_ptr(pts_prev))
+    kernels.check(code, "vio_lk_pyramid")
+    track_pyramid.launches += 1
+    return pts, status, err, n_iter
 
 
-track_level.launches = 0
+track_pyramid.launches = 0
 
 
 def _in_image(guess, H, W):
@@ -224,25 +289,8 @@ def pyramidal_lk(pyr_prev, pyr_next, pts_prev, pts_init, win=15, iters=30,
     Returns (pts_next (P, 2), status (P,), err (P,)). Status fails when the
     point leaves the image, drifts past the margin at any level, or the
     finest level's gradient matrix is degenerate (cv2's semantics)."""
-    levels = len(pyr_prev) - 1
-    guess = pts_init / (2.0 ** levels)
-    status = torch.ones(pts_prev.shape[0], dtype=torch.bool, device=pts_prev.device)
-    err = torch.zeros(pts_prev.shape[0], dtype=torch.float32, device=pts_prev.device)
-    for lvl in range(levels, -1, -1):
-        H, W = pyr_prev[lvl].shape
-        # Levels too small for the window plus a margin are skipped, as cv2
-        # caps maxLevel by image size.
-        if min(H, W) >= win + 8:
-            guess, ok, lost, err = track_level(
-                pyr_prev[lvl], pyr_next[lvl], pts_prev / (2.0 ** lvl), guess,
-                win, iters, eps, min_eig_threshold)
-            status = status & ~lost
-            if lvl == 0:
-                status = status & ok
-        if lvl != 0:
-            guess = guess * 2.0
-    H, W = pyr_next[0].shape
-    return guess, status & _in_image(guess, H, W), err
+    return track_pyramid(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
+                         min_eig_threshold)[:3]
 
 
 def lk_verify(pyr_prev_a, pyr_next_a, pyr_prev_b, pyr_next_b,
@@ -250,21 +298,14 @@ def lk_verify(pyr_prev_a, pyr_next_a, pyr_prev_b, pyr_next_b,
               min_eig_threshold=1e-4):
     """One finest-level LK pass over two image pairs at once (the
     backward-consistency checks both start at converged solutions, so the
-    coarse levels add nothing). The kernel takes both pairs' image
-    pointers and a per-point pair index.
+    coarse levels add nothing): one `track_pyramid` call over both pairs,
+    the points of pair A first.
 
     Returns ((pts (Pa, 2), status, err), (pts (Pb, 2), status, err))."""
-    H, W = pyr_prev_a[0].shape
     Pa = pts_a.shape[0]
-    pts = torch.cat([pts_a, pts_b], dim=0)
-    init = torch.cat([init_a, init_b], dim=0)
-    img_idx = torch.cat([
-        torch.zeros(Pa, dtype=torch.int32, device=pts.device),
-        torch.ones(pts_b.shape[0], dtype=torch.int32, device=pts.device)])
-    guess, ok, lost, err = track_level(
-        pyr_prev_a[0], pyr_next_a[0], pts, init, win, iters, eps,
-        min_eig_threshold, prev_b=pyr_prev_b[0], next_b=pyr_next_b[0],
-        img_idx=img_idx)
-    status = ok & ~lost & _in_image(guess, H, W)
+    guess, status, err, _ = track_pyramid(
+        pyr_prev_a[:1], pyr_next_a[:1], torch.cat([pts_a, pts_b]),
+        torch.cat([init_a, init_b]), win, iters, eps, min_eig_threshold,
+        pyr_prev_b=pyr_prev_b[:1], pyr_next_b=pyr_next_b[:1], n_first=Pa, min_size=0)
     return ((guess[:Pa], status[:Pa], err[:Pa]),
             (guess[Pa:], status[Pa:], err[Pa:]))

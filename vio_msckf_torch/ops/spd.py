@@ -1,9 +1,10 @@
 """Batched SPD solve for the chi-square gate: X = B^-1 R for F systems.
 
 Port of vio_msckf_tpu/ops/spd_pallas.py. `spd_solve` is the kernel
-wrapper: a CUDA tensor launches csrc/spd_gj.cu (unpivoted Gauss-Jordan,
-counted in `spd_solve.launches`), a CPU tensor runs `spd_solve_plain`, a
-Cholesky solve, which is what the JAX package runs off-TPU.
+wrapper: a CUDA tensor launches csrc/spd_gj.cu (unpivoted Gauss-Jordan:
+one warp per system for m <= 8, one CTA per system up to m = 128; counted
+in `spd_solve.launches`), a CPU tensor runs `spd_solve_plain`, a Cholesky
+solve, which is what the JAX package runs off-TPU.
 
 The two agree to f32 roundoff on the symmetric positive definite systems
 the filter builds (B = H P H^T + s I). They split on an indefinite B:
@@ -15,8 +16,6 @@ reference's two solvers.
 import torch
 
 from vio_msckf_torch import kernels
-
-_THREADS = 256
 
 
 def spd_solve_plain(B, R):
@@ -34,6 +33,8 @@ def spd_solve(B, R):
         return spd_solve_plain(B, R)
     F, m, _ = B.shape
     k = R.shape[2]
+    if m > 128 or m + k > 144:
+        raise ValueError(f"spd_gj kernel takes m <= 128 with m + k <= 144, got m={m}, k={k}")
     B = B.contiguous()
     R = R.contiguous()
     kernels.require(B, "spd_solve B", torch.float32, (F, m, m))
@@ -41,13 +42,8 @@ def spd_solve(B, R):
     X = torch.empty_like(R)
     if F == 0:
         return X
-    # One CTA per large system; small systems share a CTA, one 32-thread
-    # group each.
-    tps = _THREADS if m > 16 else 32
-    spb = _THREADS // tps
     code = kernels.lib().vio_spd_gj(
-        kernels.ptr(B), kernels.ptr(R), kernels.ptr(X), F, m, k, spb,
-        _THREADS, kernels.stream_ptr(B))
+        kernels.ptr(B), kernels.ptr(R), kernels.ptr(X), F, m, k, kernels.stream_ptr(B))
     kernels.check(code, "vio_spd_gj")
     spd_solve.launches += 1
     return X
