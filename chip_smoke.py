@@ -168,29 +168,70 @@ def phase_workload(cfg, dev):
 FAST_OPS_PER_PX = 16 + 2 * (32 + 32 + 15) + 1 + 1 + 8 + 1
 
 
-def check_fast(img):
+FAST_THRESHOLDS = (0.0, 15.0, 40.0)
+
+
+def fast_inputs(frames, n, dev):
+    """The FAST kernel's check inputs: rendered frames 0, 40, 110 and the
+    last; the integer blocky image (ties, dense in corners); frame 40's
+    coarser pyramid levels (60x94 takes the kernel's scalar path, W % 4 !=
+    0); and a 97x131 crop, a multiple of no tile side."""
+    import torch
+    from vio_msckf_torch.ops.pyramid import build_pyramid
+
+    cam0 = frames["cam0_img"]
+    imgs = {f"frame {k}": cam0[k] for k in (0, 40, 110, n - 1)}
+    rng = np.random.default_rng(4)
+    blocky = np.kron(rng.integers(0, 256, (121, 189)), np.ones((4, 4)))[:480, :752]
+    imgs["blocky"] = torch.as_tensor(blocky, dtype=torch.float32, device=dev)
+    for lvl, x in enumerate(build_pyramid(cam0[40], 3)[1:], 1):
+        imgs[f"frame 40 level {lvl}"] = x
+    imgs["frame 40 crop"] = cam0[40][200:297, 300:431]
+    return {k: v.contiguous() for k, v in imgs.items()}
+
+
+def check_fast(frames, n, dev):
     import torch
     from vio_msckf_torch.ops import fast
 
-    out = fast.fast_nms(img, 15.0)
-    ref = fast.fast_score_map(img, 15.0)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        bad = int((out != ref).sum())
-        raise AssertionError(f"FAST kernel differs from its twin at {bad} pixels")
-    err = float((out - ref).abs().max())
-    call = dict(shape=list(img.shape), per_frame=1,
-                ms=device_ms(lambda: fast.fast_nms(img, 15.0), 200),
-                plain_ms=device_ms(lambda: fast.fast_score_map(img, 15.0), 50),
-                library_ms=None, bytes=nbytes(img, out), ops=img.numel() * FAST_OPS_PER_PX)
-    call["bound_ms"], call["bound_by"] = bound(call["bytes"], call["ops"])
-    log(f"[kernel fast_nms] bit-exact on {tuple(img.shape)}, {int((ref > 0).sum())} "
-        f"corners; {call['ms']:.5f} ms vs twin {call['plain_ms']:.5f} ms, bound "
-        f"{call['bound_ms'] * 1e3:.3f} us ({call['bound_by']})")
+    imgs = fast_inputs(frames, n, dev)
+    err = 0.0
+    for name, img in imgs.items():
+        for thr in FAST_THRESHOLDS:
+            out = fast.fast_nms(img, thr)
+            ref = fast.fast_score_map(img, thr)
+            torch.cuda.synchronize()
+            err = max(err, float((out - ref).abs().max()))
+            if not torch.equal(out, ref):
+                bad = int((out != ref).sum())
+                raise AssertionError(f"FAST kernel differs from its twin on {name} "
+                                     f"{tuple(img.shape)} at threshold {thr}: {bad} pixels")
+
+    def timed(img):
+        out = fast.fast_nms(img, 15.0)
+        c = dict(shape=list(img.shape), corners=int((out > 0).sum()),
+                 candidates=int(fast.fast_candidates(img, 15.0).sum()),
+                 ms=device_ms(lambda: fast.fast_nms(img, 15.0), 200),
+                 plain_ms=device_ms(lambda: fast.fast_score_map(img, 15.0), 50),
+                 library_ms=None, bytes=nbytes(img, out), ops=img.numel() * FAST_OPS_PER_PX)
+        c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
+        return c
+
+    # The main path's call (cam0 level 0 at the tracker's threshold 15),
+    # and the blocky image, whose corners are dense: the compass reject
+    # makes the kernel's time depend on the data.
+    call = dict(timed(imgs["frame 40"]), per_frame=1)
+    dense = timed(imgs["blocky"])
+    log(f"[kernel fast_nms] bit-exact on {len(imgs)} inputs x thresholds "
+        f"{FAST_THRESHOLDS}; frame 40: {call['corners']} corners, {call['candidates']} "
+        f"candidates, {call['ms']:.5f} ms vs twin {call['plain_ms']:.5f} ms; blocky: "
+        f"{dense['corners']} corners, {dense['candidates']} candidates, {dense['ms']:.5f} ms "
+        f"vs twin {dense['plain_ms']:.5f} ms; bound {call['bound_ms'] * 1e3:.3f} us "
+        f"({call['bound_by']})")
     return dict(name="fast_nms", route="cuda", source="vio_msckf_torch/csrc/fast_nms.cu",
                 replaces="vio_msckf_tpu/ops/fast_pallas.py:71", max_abs_err=err,
                 library_note="no single PyTorch call computes FAST-9 + NMS",
-                calls=[call], **summed([call]))
+                calls=[call], dense_input=dense, **summed([call]))
 
 
 def _lk_points(img, n, W, H, rng):
@@ -443,8 +484,7 @@ def main():
     phase_build()
     cfg = euroc_config()
     frames, init, gt, n = phase_workload(cfg, dev)
-    img = frames["cam0_img"][40].contiguous()
-    entries = [check_fast(img), check_lk(cfg, frames, dev), check_spd(dev)]
+    entries = [check_fast(frames, n, dev), check_lk(cfg, frames, dev), check_spd(dev)]
     launches = phase_slice(cfg, frames, init, gt, n, dev)
     by_counter = {"fast_nms": "fast_nms", "lk_pyramid": "track_pyramid", "spd_gj": "spd_solve"}
     for e in entries:

@@ -41,3 +41,4 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device (the hand kernels); skipped without one")
+    config.addinivalue_line("markers", "slow: minutes on the CPU; tier-1 deselects it")

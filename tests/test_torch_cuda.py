@@ -13,6 +13,9 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter, map_coordinates
 
+from vio_msckf_torch.config import euroc_config
+from vio_msckf_torch.data.render import render_sequence
+from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
 from vio_msckf_torch.ops import fast, klt, pyramid, spd
 
 
@@ -34,17 +37,41 @@ def _textured_pair(H=240, W=376, seed=5):
     return img0, img1, pts.astype(np.float32)
 
 
+def _fast_inputs(cuda):
+    """Frames 0, 40, 110 and the last of the bench workload (rendered on
+    the card), the integer blocky image (ties, dense in corners), frame
+    40's coarser pyramid levels (240x376, 120x188, 60x94: the scalar path
+    at W % 4 != 0) and a 97x131 crop, a multiple of no tile side."""
+    cfg = euroc_config()
+    seq = simulate_sequence(cfg, SimConfig(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5),
+                                           yaw_rate=0.2, wobble_amp=0.1))
+    frames, _, first = bundle_frames(seq, cfg)
+    n = len(frames["timestamp"])
+    idx = [0, 40, 110, n - 1]
+    R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)[idx]
+    cam0, _ = render_sequence(cfg, R, seq["gt_p"][first:first + n][idx], radius=14.0,
+                              seed=7, device=cuda)
+    rng = np.random.default_rng(4)
+    blocky = np.kron(rng.integers(0, 256, (121, 189)), np.ones((4, 4)))[:480, :752]
+    imgs = [cam0[k] for k in range(len(idx))]
+    imgs += [torch.as_tensor(blocky, dtype=torch.float32, device=cuda)]
+    imgs += pyramid.build_pyramid(imgs[1], 3)[1:]
+    imgs += [imgs[1][200:297, 300:431]]
+    return [x.contiguous() for x in imgs]
+
+
 def _check_fast(cuda):
     # Only subtract/min/max: the kernel must equal the twin bit for bit,
-    # ties included (integer-valued blocky image).
-    rng = np.random.default_rng(4)
-    img = np.kron(rng.integers(0, 256, (121, 189)), np.ones((4, 4)))[:480, :752]
-    img = torch.as_tensor(img, dtype=torch.float32, device=cuda)
-    before = fast.fast_nms.launches
-    out = fast.fast_nms(img, 15.0)
-    assert fast.fast_nms.launches == before + 1
-    assert torch.equal(out, fast.fast_score_map(img, 15.0))
-    assert int((out > 0).sum()) > 100
+    # ties included, at every threshold.
+    for img in _fast_inputs(cuda):
+        for thr in (0.0, 15.0, 40.0):
+            before = fast.fast_nms.launches
+            out = fast.fast_nms(img, thr)
+            assert fast.fast_nms.launches == before + 1
+            want = fast.fast_score_map(img, thr)
+            assert torch.equal(out, want), (tuple(img.shape), thr, int((out != want).sum()))
+            if thr == 15.0 and img.shape == (480, 752):
+                assert int((out > 0).sum()) > 100
 
 
 def _lk_close(got, want, p95_max=2e-2, agree_min=0.99):

@@ -1,0 +1,78 @@
+"""The port's VIOEngine against the JAX engine at full width, on the CPU.
+
+The bench workload of bench.py (euroc_config(): 752x480 stereo, 4 pyramid
+levels, 4x5 grid with 5 features a cell, 20 clones, 128 lost candidates),
+its first 45 frames rendered by the JAX renderer, go through both engines.
+45 frames run past the first clone prunes (frames ~20 on). Marked slow:
+it takes minutes, so tier-1 (-m 'not slow') leaves it out. Run it with
+
+    python -m pytest tests/test_torch_fullwidth.py -m slow -q -s
+
+(-s shows the two numbers it measures for the record: how far the two
+renderers are apart at full width, and how many FAST corners of frame 0
+that changes)."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vio_msckf_tpu.config import euroc_config as j_euroc_config
+from vio_msckf_tpu.data.render import render_sequence as jrender
+from vio_msckf_tpu.data.simulator import SimConfig, bundle_frames, simulate_sequence
+from vio_msckf_tpu.engine import VIOEngine as JEngine
+from vio_msckf_torch.config import euroc_config as t_euroc_config
+from vio_msckf_torch.data.render import render_sequence as trender
+from vio_msckf_torch.engine import VIOEngine as TEngine
+from vio_msckf_torch.ops.fast import fast_score_map
+
+N_FRAMES = 45
+IMU_KEYS = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")
+
+
+@pytest.mark.slow
+def test_engine_matches_jax_at_full_width():
+    cfg = j_euroc_config()
+    sim = SimConfig(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5), yaw_rate=0.2,
+                    wobble_amp=0.1)
+    seq = simulate_sequence(cfg, sim)
+    frames, init, first = bundle_frames(seq, cfg)
+    n = N_FRAMES
+    R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
+    p = seq["gt_p"][first:first + n]
+    j0, j1 = (np.array(x) for x in jrender(cfg, R, p, radius=14.0, seed=7, chunk=15))
+    imu = {k: frames[k][:n] for k in IMU_KEYS}
+
+    # For the record: the port's renderer against the JAX renderer's frames.
+    t0, t1 = trender(t_euroc_config(), R, p, radius=14.0, seed=7, chunk=5,
+                     device="cpu")
+    render_diff = max(float(np.abs(t0.numpy() - j0).max()),
+                      float(np.abs(t1.numpy() - j1).max()))
+    corners = [fast_score_map(torch.as_tensor(x), 15.0) > 0 for x in (t0[0], j0[0])]
+    print(f"\nrenderers at full width: max |port - jax| {render_diff:.3g} DN over "
+          f"{n} stereo frames; frame 0 FAST corners (threshold 15): "
+          f"{int(corners[1].sum())} from the JAX frame, "
+          f"{int((corners[0] != corners[1]).sum())} differ on the port's frame")
+
+    # The same frames (the JAX renderer's) through both engines.
+    je = JEngine(cfg)
+    jf = dict(cam0_img=jnp.asarray(j0), cam1_img=jnp.asarray(j1),
+              **{k: jnp.asarray(v) for k, v in imu.items()})
+    jc, jo = jax.jit(je.run_sequence)(je.init(init["q0"], init["bg0"], init["gravity"]), jf)
+    te = TEngine(t_euroc_config(), device="cpu")
+    tf = dict(cam0_img=torch.from_numpy(j0), cam1_img=torch.from_numpy(j1),
+              **{k: torch.as_tensor(v) for k, v in imu.items()})
+    tc, to = te.run_sequence(te.init(init["q0"], init["bg0"], init["gravity"]), tf)
+
+    jp, tp = np.asarray(jo.p), to.p.numpy()
+    dp = np.abs(tp - jp).max(axis=1)
+    bad = np.flatnonzero(dp > 1e-4)
+    assert bad.size == 0, f"poses apart from frame {bad[0]} on (max {dp.max():.3g} m)"
+    jts, tts = jax.tree_util.tree_map(np.asarray, jc[0]), tc[0]
+    assert jts.valid.sum() >= 40
+    np.testing.assert_array_equal(tts.ids.numpy(), jts.ids)
+    np.testing.assert_array_equal(tts.valid.numpy(), jts.valid)
+    np.testing.assert_allclose(tts.cam0_pts.numpy(), jts.cam0_pts, atol=1e-3)
+    np.testing.assert_allclose(tts.cam1_pts.numpy(), jts.cam1_pts, atol=1e-3)
+    print(f"poses: max |port - jax| {dp.max():.3g} m over {n} frames")

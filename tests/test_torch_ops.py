@@ -74,6 +74,22 @@ def _check_fast_twin_bit_exact_vs_xla_and_pallas():
     np.testing.assert_array_equal(tfast.fast_nms(torch.from_numpy(img), 15.0).numpy(), got)
 
 
+def _check_fast_compass_rule():
+    # The CUDA kernel scores fully only the pixels that pass the compass
+    # test (two neighbouring compass points beyond the threshold in one
+    # polarity). Every corner the twin reports must pass it, on a tie-rich
+    # blocky image and a smooth textured one, and the test must reject
+    # pixels, or the kernel would skip nothing.
+    textured = _lk_pair()[0]
+    for img in (_blocky(np.random.default_rng(6)), textured):
+        img = torch.from_numpy(img)
+        for thr in (0.0, 15.0, 40.0):
+            corners = tfast.fast_score_map(img, thr) > 0
+            cand = tfast.fast_candidates(img, thr)
+            assert not bool((corners & ~cand).any()), thr
+            assert int(corners.sum()) > 0 and int(cand.sum()) < cand.numel(), thr
+
+
 def _check_detect_grid_features_ties():
     # Exact: the same integer scores, the lower flat index wins each tie.
     rng = np.random.default_rng(1)
@@ -190,6 +206,7 @@ def _check_spd_twin_rejects_indefinite():
 
 def test_ops_match_jax():
     _check_fast_twin_bit_exact_vs_xla_and_pallas()
+    _check_fast_compass_rule()
     _check_detect_grid_features_ties()
     _check_pyramid_parity()
     _check_distortion_parity("radtan", (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05))

@@ -59,6 +59,26 @@ def fast_score_map(img, threshold):
     return torch.where((score >= neigh) & corner & inside, score, zero)
 
 
+def fast_candidates(img, threshold):
+    """Pixels that pass FAST-9's compass test: (H, W) -> (H, W) bool.
+
+    Every 9-arc of the 16-point circle holds two neighbouring compass
+    points k and k+4 (k in 0, 4, 8, 12), so a pixel can score above
+    `threshold` only where such a pair is both brighter or both darker
+    than the centre by more than `threshold`. Everywhere else
+    fast_score_map is 0, which is what lets csrc/fast_nms.cu skip the full
+    score. The main path does not call this: the tests hold the rule with
+    it, and chip_smoke.py counts the candidates it times."""
+    img = img.to(torch.float32)
+    d = [torch.roll(img, (-dy, -dx), dims=(0, 1)) - img
+         for dy, dx in _CIRCLE[::4]]
+    hit = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+    for k in range(4):
+        a, b = d[k], d[(k + 1) % 4]
+        hit |= ((a > threshold) & (b > threshold)) | ((a < -threshold) & (b < -threshold))
+    return hit
+
+
 def fast_nms(img, threshold):
     """FAST-9 score + NMS map of one (H, W) f32 image.
 
