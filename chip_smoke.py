@@ -10,15 +10,35 @@ Phases, one line each; any failure raises and exits nonzero:
   3. workload - simulates and renders the bench workload (12 s, 752x480
                 stereo, ~220 frames) on the card with the port's renderer.
   4. kernels  - each kernel against its plain PyTorch twin at the shapes
-                the main path gives it, with the stated tolerance; the
-                device time of the kernel, its twin and (where one exists)
-                the one PyTorch call that computes the same function; the
-                roofline bound of the same work.
+                the paths below give it (one sequence, and the batch of 4),
+                with the stated tolerance; the device time of the kernel,
+                its twin and (where one exists) the one PyTorch call that
+                computes the same function; the roofline bound of the same
+                work.
   5. slice    - VIOEngine over every frame at the full EuRoC config: ATE
                 and RPE against ground truth (fails above the bench's
                 0.5 m bound), launch counts of each kernel in that run
                 (each must be > 0), host syncs in one warm step, and
                 frames/s over a second pass.
+  6. batch    - the bench's 4-sequence batch (bench.py:run_batched: seeds
+                4..7) through VIOEngine.run_batch at B = 4, twice: ATE/RPE
+                per sequence (0.5 m bound), member 0 against the slice's
+                trajectory (same workload; 1e-4 m bound), host syncs in one
+                warm batched step (0), hand-kernel launches per batched step
+                (3 LK / 1 FAST / 2 SPD), aggregate frames/s of the second
+                pass, and the cudaLaunchKernel count of one warm step at
+                B = 1 and B = 4 (torch.profiler).
+  7. suite    - the other cells of bench.py --suite: fast motion and the
+                hostile world (rendered by the port) as one B = 2 batch,
+                each member held against its sequence run alone (1e-4 m
+                bound), then the 30-clone window (D = 201) as one sequence;
+                ATE/RPE each (0.5 m bound), beside the JAX package's TPU v5e
+                numbers from SUITE_r05.json (the reference's, not the
+                port's).
+Launches are counted per path and per call shape: every counter is set to 0
+just before a path runs and read just after; every kernel must launch in
+every path, and every call shape a path launches must be one that phase 4
+held against the twin.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -26,8 +46,10 @@ Kernel times (`device_ms`): a spin kernel holds the stream while the host
 enqueues n calls back to back between two CUDA events, so the events see
 the device's time for the n calls and not the host's Python between them;
 the time is divided by n, and the median of a few such runs is kept. Each
-kernel entry reports per-frame sums over the calls the main path makes
-(one line per call shape under "calls"). `bound_ms` is the larger of the
+kernel entry reports per-frame sums over the calls the one-sequence path
+makes, and under "calls" one entry per call shape with the path that makes
+it and its launches there; "batch" sums the B = 4 path's calls per
+sequence-frame. `bound_ms` is the larger of the
 bytes the function must move (inputs read once, outputs written once) at
 3.35 TB/s and the f32 operations these inputs need at 67 TFLOP/s (H100
 SXM data sheet).
@@ -45,6 +67,14 @@ import numpy as np
 SIM = dict(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5), yaw_rate=0.2, wobble_amp=0.1)
 RENDER = dict(radius=14.0, seed=7)
 ATE_BOUND_M = 0.5
+BATCH = 4                      # bench.py --suite: the 4-sequence batch
+# bench.py --suite's other cells: (name, SimConfig overrides, hostile).
+FAST_MOTION = dict(amp=(2.5, 1.8, 0.9), yaw_rate=0.6, wobble_amp=0.25, seed=11)
+CLONES_30 = 30
+# The JAX package's ATE in SUITE_r05.json (a TPU v5e run of the reference;
+# printed beside the port's numbers as an anchor, not as the port's).
+TPU_ANCHOR_ATE = {"fast motion": 0.1015, "hostile": 0.1767, "30 clones": 0.0535,
+                  "4-sequence batch": 0.0489}
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -141,24 +171,44 @@ def phase_build():
         + " | ".join(regs))
 
 
-def phase_workload(cfg, dev):
+def build_workload(cfg, dev, sim=None, augs=None):
+    """Simulate and render one bench sequence on the card (bench.py:
+    build_workload): frames dict, init dict, ground-truth positions, n."""
     import torch
     from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
     from vio_msckf_torch.data.render import render_sequence
 
-    seq = simulate_sequence(cfg, SimConfig(**SIM))
+    seq = simulate_sequence(cfg, SimConfig(**dict(SIM, **(sim or {}))))
     frames, init, first = bundle_frames(seq, cfg)
     n = len(frames["timestamp"])
     R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
     gt = seq["gt_p"][first:first + n]
-    t0 = time.perf_counter()
-    cam0, cam1 = render_sequence(cfg, R, gt, device=dev, **RENDER)
-    torch.cuda.synchronize()
-    log(f"[workload] {n} stereo frames {tuple(cam0.shape[1:])} rendered on the card "
-        f"in {time.perf_counter() - t0:.2f} s")
+    cam0, cam1 = render_sequence(cfg, R, gt, device=dev, augs=augs, **RENDER)
     dframes = dict(cam0_img=cam0, cam1_img=cam1)
     for k in ("imu_gyro", "imu_acc", "imu_dt", "imu_valid"):
         dframes[k] = torch.as_tensor(frames[k], device=dev)
+    return dframes, init, gt, n
+
+
+def stack_workloads(workloads):
+    """Sequences of one length -> frames (B, T, ...), inits, gts, n."""
+    import torch
+
+    n = workloads[0][3]
+    if any(w[3] != n for w in workloads):
+        raise AssertionError(f"sequence lengths differ: {[w[3] for w in workloads]}")
+    frames = {k: torch.stack([w[0][k] for w in workloads]) for k in workloads[0][0]}
+    return frames, [w[1] for w in workloads], [w[2] for w in workloads], n
+
+
+def phase_workload(cfg, dev):
+    import torch
+
+    t0 = time.perf_counter()
+    dframes, init, gt, n = build_workload(cfg, dev)
+    torch.cuda.synchronize()
+    log(f"[workload] {n} stereo frames {tuple(dframes['cam0_img'].shape[1:])} rendered on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
     return dframes, init, gt, n
 
 
@@ -169,24 +219,34 @@ FAST_OPS_PER_PX = 16 + 2 * (32 + 32 + 15) + 1 + 1 + 8 + 1
 
 
 FAST_THRESHOLDS = (0.0, 15.0, 40.0)
+# Frames of the 220-frame workload stacked as a batch of B distinct images.
+BATCH_FRAMES = (0, 40, 110, 219)
+SUITE_B = 2                    # the suite's fast motion + hostile batch
+SUITE_FRAMES = (70, 150)
 
 
 def fast_inputs(frames, n, dev):
-    """The FAST kernel's check inputs: rendered frames 0, 40, 110 and the
-    last; the integer blocky image (ties, dense in corners); frame 40's
-    coarser pyramid levels (60x94 takes the kernel's scalar path, W % 4 !=
-    0); and a 97x131 crop, a multiple of no tile side."""
+    """The FAST kernel's check inputs, each a (B, H, W) stack: rendered
+    frames 0, 40, 110 and the last alone and as one B = 4 stack; frames
+    70 and 150 as one B = 2 stack (the suite's batch); the
+    integer blocky image (ties, dense in corners); frame 40's coarser
+    pyramid levels (60x94 takes the kernel's scalar path, W % 4 != 0); a
+    97x131 crop, a multiple of no tile side, alone and as a stack whose
+    planes leave 16-byte boundaries."""
     import torch
     from vio_msckf_torch.ops.pyramid import build_pyramid
 
     cam0 = frames["cam0_img"]
-    imgs = {f"frame {k}": cam0[k] for k in (0, 40, 110, n - 1)}
+    imgs = {f"frame {k}": cam0[k][None] for k in (0, 40, 110, n - 1)}
+    imgs["batch of 4"] = cam0[[k if k < n else n - 1 for k in BATCH_FRAMES]]
+    imgs["batch of 2"] = cam0[[min(k, n - 1) for k in SUITE_FRAMES]]
     rng = np.random.default_rng(4)
     blocky = np.kron(rng.integers(0, 256, (121, 189)), np.ones((4, 4)))[:480, :752]
-    imgs["blocky"] = torch.as_tensor(blocky, dtype=torch.float32, device=dev)
-    for lvl, x in enumerate(build_pyramid(cam0[40], 3)[1:], 1):
+    imgs["blocky"] = torch.as_tensor(blocky, dtype=torch.float32, device=dev)[None]
+    for lvl, x in enumerate(build_pyramid(cam0[40][None], 3)[1:], 1):
         imgs[f"frame 40 level {lvl}"] = x
-    imgs["frame 40 crop"] = cam0[40][200:297, 300:431]
+    imgs["frame 40 crop"] = cam0[40][200:297, 300:431][None]
+    imgs["batch of 3 crops"] = cam0[[0, 40, 110], 200:297, 300:431]
     return {k: v.contiguous() for k, v in imgs.items()}
 
 
@@ -207,9 +267,9 @@ def check_fast(frames, n, dev):
                 raise AssertionError(f"FAST kernel differs from its twin on {name} "
                                      f"{tuple(img.shape)} at threshold {thr}: {bad} pixels")
 
-    def timed(img):
+    def timed(img, path):
         out = fast.fast_nms(img, 15.0)
-        c = dict(shape=list(img.shape), corners=int((out > 0).sum()),
+        c = dict(path=path, shape=list(img.shape), corners=int((out > 0).sum()),
                  candidates=int(fast.fast_candidates(img, 15.0).sum()),
                  ms=device_ms(lambda: fast.fast_nms(img, 15.0), 200),
                  plain_ms=device_ms(lambda: fast.fast_score_map(img, 15.0), 50),
@@ -217,21 +277,28 @@ def check_fast(frames, n, dev):
         c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
         return c
 
-    # The main path's call (cam0 level 0 at the tracker's threshold 15),
-    # and the blocky image, whose corners are dense: the compass reject
-    # makes the kernel's time depend on the data.
-    call = dict(timed(imgs["frame 40"]), per_frame=1)
-    dense = timed(imgs["blocky"])
+    # The one-sequence path's call (cam0 level 0 at the tracker's threshold
+    # 15); the batch path's call, one (4, 480, 752) launch; the suite's
+    # B = 2 call; and the blocky image, whose corners are dense: the
+    # compass reject makes the kernel's time depend on the data.
+    call = dict(timed(imgs["frame 40"], "slice"), per_frame=1)
+    batch = dict(timed(imgs["batch of 4"], "batch"), per_frame=1 / BATCH)
+    pair = dict(timed(imgs["batch of 2"], "suite B=2"), per_frame=1 / SUITE_B)
+    dense = timed(imgs["blocky"], "slice")
     log(f"[kernel fast_nms] bit-exact on {len(imgs)} inputs x thresholds "
         f"{FAST_THRESHOLDS}; frame 40: {call['corners']} corners, {call['candidates']} "
-        f"candidates, {call['ms']:.5f} ms vs twin {call['plain_ms']:.5f} ms; blocky: "
+        f"candidates, {call['ms']:.5f} ms vs twin {call['plain_ms']:.5f} ms; batch of 4 "
+        f"frames {BATCH_FRAMES}: {batch['ms']:.5f} ms vs twin {batch['plain_ms']:.5f} ms, "
+        f"bound {batch['bound_ms'] * 1e3:.3f} us; batch of 2 frames {SUITE_FRAMES}: "
+        f"{pair['ms']:.5f} ms vs twin {pair['plain_ms']:.5f} ms; blocky: "
         f"{dense['corners']} corners, {dense['candidates']} candidates, {dense['ms']:.5f} ms "
         f"vs twin {dense['plain_ms']:.5f} ms; bound {call['bound_ms'] * 1e3:.3f} us "
         f"({call['bound_by']})")
     return dict(name="fast_nms", route="cuda", source="vio_msckf_torch/csrc/fast_nms.cu",
                 replaces="vio_msckf_tpu/ops/fast_pallas.py:71", max_abs_err=err,
                 library_note="no single PyTorch call computes FAST-9 + NMS",
-                calls=[call], dense_input=dense, **summed([call]))
+                calls=[call, batch, pair], dense_input=dense, batch=summed([batch]),
+                **summed([call]))
 
 
 def _lk_points(img, n, W, H, rng):
@@ -260,7 +327,10 @@ LK_OPS_PER_LEVEL = 17 * 17 * 9 + 225 * (4 + 6 + 12) + 20
 LK_OPS_PER_ITER = 225 * 14 + 20
 
 
-def check_lk(cfg, frames, dev):
+def lk_calls(cfg, frames, dev, ks, path):
+    """The three LK calls of the tracker for sequences that track frame k
+    -> k + 1 (one sequence per k in ks): temporal P = 128, stereo P = 228,
+    verify P = 356 per sequence; each sequence its own planes and points."""
     import torch
     from vio_msckf_torch.frontend.tracker import StereoTracker
     from vio_msckf_torch.ops import klt
@@ -268,86 +338,111 @@ def check_lk(cfg, frames, dev):
 
     fe = cfg.frontend
     args = (fe.lk_patch_size, fe.lk_max_iteration, fe.lk_track_precision, 1e-4)
-    win = fe.lk_patch_size
     lv = fe.lk_pyramid_levels
     H, W = frames["cam0_img"].shape[1:]
-    k = 40                                   # a frame in motion
-    pa = build_pyramid(frames["cam0_img"][k], lv)
-    pb = build_pyramid(frames["cam0_img"][k + 1], lv)
-    pc = build_pyramid(frames["cam1_img"][k], lv)
+    ks = list(ks)
+    pa = build_pyramid(frames["cam0_img"][ks], lv)
+    pb = build_pyramid(frames["cam0_img"][[k + 1 for k in ks]], lv)
+    pc = build_pyramid(frames["cam1_img"][ks], lv)
     rng = np.random.default_rng(0)
     T = fe.max_tracks
     C = fe.grid_row * fe.grid_col * fe.grid_max_feature_num
-    pts_t = torch.as_tensor(_lk_points(pa[0], T, W, H, rng), device=dev)
-    pts_s = torch.as_tensor(_lk_points(pa[0], T + C, W, H, rng), device=dev)
+    pts_t = torch.as_tensor(np.stack([_lk_points(pa[0][b], T, W, H, rng)
+                                      for b in range(len(ks))]), device=dev)
+    pts_s = torch.as_tensor(np.stack([_lk_points(pa[0][b], T + C, W, H, rng)
+                                      for b in range(len(ks))]), device=dev)
     init_s = StereoTracker(cfg, dev)._stereo_predict(pts_s)
-    cpu = lambda pyr: [x.cpu() for x in pyr]          # noqa: E731
-
     g, s, _ = klt.pyramidal_lk(pa, pb, pts_t, pts_t, *args)
     gs, ss, _ = klt.pyramidal_lk(pa, pc, pts_s, init_s, *args)
-    # The main path's three calls: (name, kernel call, twin arguments,
-    # tracked levels). lk_verify runs level 0 of two image pairs.
-    ver_pts = torch.cat([g, gs])
-    ver_init = torch.cat([pts_t, pts_s])
-    calls = [
-        ("temporal", lambda: klt.pyramidal_lk(pa, pb, pts_t, pts_t, *args),
-         dict(pyr_prev=pa, pyr_next=pb, pts_prev=pts_t, pts_init=pts_t), [pa, pb]),
-        ("stereo", lambda: klt.pyramidal_lk(pa, pc, pts_s, init_s, *args),
-         dict(pyr_prev=pa, pyr_next=pc, pts_prev=pts_s, pts_init=init_s), [pa, pc]),
-        ("verify", lambda: klt.lk_verify(pb, pa, pc, pa, g, pts_t, gs, pts_s, *args),
-         dict(pyr_prev=pb[:1], pyr_next=pa[:1], pts_prev=ver_pts, pts_init=ver_init,
-              pyr_prev_b=pc[:1], pyr_next_b=pa[:1], n_first=T, min_size=0),
-         [pb[:1], pa[:1], pc[:1]]),
-    ]
+    # (name, kernel call, twin arguments, pyramids read). lk_verify runs
+    # level 0 of two image pairs.
+    ver_pts = torch.cat([g, gs], dim=1)
+    ver_init = torch.cat([pts_t, pts_s], dim=1)
+    return [
+        (name, path, call, tw, pyrs) for name, call, tw, pyrs in (
+            ("temporal", lambda: klt.pyramidal_lk(pa, pb, pts_t, pts_t, *args),
+             dict(pyr_prev=pa, pyr_next=pb, pts_prev=pts_t, pts_init=pts_t), [pa, pb]),
+            ("stereo", lambda: klt.pyramidal_lk(pa, pc, pts_s, init_s, *args),
+             dict(pyr_prev=pa, pyr_next=pc, pts_prev=pts_s, pts_init=init_s), [pa, pc]),
+            ("verify", lambda: klt.lk_verify(pb, pa, pc, pa, g, pts_t, gs, pts_s, *args),
+             dict(pyr_prev=pb[:1], pyr_next=pa[:1], pts_prev=ver_pts, pts_init=ver_init,
+                  pyr_prev_b=pc[:1], pyr_next_b=pa[:1], n_first=T, min_size=0),
+             [pb[:1], pa[:1], pc[:1]]),
+        )]
+
+
+def check_lk(cfg, frames, dev):
+    import torch
+    from vio_msckf_torch.ops import klt
+
+    fe = cfg.frontend
+    win = fe.lk_patch_size
+    lk_args = dict(win=win, iters=fe.lk_max_iteration, eps=fe.lk_track_precision,
+                   min_eig_threshold=1e-4)
+    n = frames["cam0_img"].shape[0]
+    # One sequence tracking frame 40 (in motion), four sequences tracking
+    # frames 40, 70, 100, 130 and the suite's two tracking frames 40 and
+    # 70: distinct planes, so a kernel that reads the wrong sequence's
+    # plane disagrees with the twin.
+    calls = (lk_calls(cfg, frames, dev, [40], "slice")
+             + lk_calls(cfg, frames, dev, [min(40 + 30 * b, n - 2) for b in range(BATCH)],
+                        "batch")
+             + lk_calls(cfg, frames, dev, [40, 70], "suite B=2"))
+    cpu = lambda pyr: [x.cpu() for x in pyr]          # noqa: E731
 
     worst_err, lines, out = 0.0, [], []
-    for name, call, tw, pyrs in calls:
+    for name, path, call, tw, pyrs in calls:
         got = call()
         if name == "verify":
-            got = tuple(torch.cat([a, b]) for a, b in zip(*got))
+            got = tuple(torch.cat([a, b], dim=1) for a, b in zip(*got))
         g_k, s_k = got[0].cpu(), got[1].cpu()
         twin_args = {key: (cpu(v) if isinstance(v, list) else
                            v.cpu() if isinstance(v, torch.Tensor) else v)
                      for key, v in tw.items()}
-        lk_args = dict(win=args[0], iters=args[1], eps=args[2], min_eig_threshold=args[3])
         g_t, s_t, _, it_t = klt.track_pyramid_plain(**twin_args, **lk_args)
         it_k = klt.track_pyramid(**tw, **lk_args)[3]
-        both = s_k & s_t
-        d = torch.linalg.vector_norm(g_k[both] - g_t[both], dim=1).numpy()
-        p95 = float(np.percentile(d, 95)) if d.size else 0.0
-        agree = float((s_k == s_t).float().mean())
-        if not d.size or p95 >= 2e-2 or agree < 0.99:
-            raise AssertionError(f"LK {name}: p95 {p95:.3g} px, status agreement "
-                                 f"{agree:.4f} over {d.size} tracked points")
-        worst_err = max(worst_err, float(d.max()))
-        P = len(s_t)
+        B, P = s_t.shape
+        for b in range(B):
+            both = s_k[b] & s_t[b]
+            d = torch.linalg.vector_norm(g_k[b][both] - g_t[b][both], dim=1).numpy()
+            p95 = float(np.percentile(d, 95)) if d.size else 0.0
+            agree = float((s_k[b] == s_t[b]).float().mean())
+            if not d.size or p95 >= 2e-2 or agree < 0.99:
+                raise AssertionError(f"LK {name} ({path}) sequence {b}: p95 {p95:.3g} px, "
+                                     f"status agreement {agree:.4f} over {d.size} points")
+            worst_err = max(worst_err, float(d.max()))
         min_size = tw.get("min_size", win + 8)
-        n_lv = sum(min(x.shape) >= min_size for x in pyrs[0])
-        imgs = [x for pyr in pyrs for x in pyr if min(x.shape) >= min_size]
+        n_lv = sum(min(x.shape[1:]) >= min_size for x in pyrs[0])
+        imgs = [x for pyr in pyrs for x in pyr if min(x.shape[1:]) >= min_size]
         # Newton iterations: the twin's count sets the bound; the slowest
         # feature's count sets the kernel's time.
-        c = dict(name=name, P=P, levels=n_lv, per_frame=1, newton_iters=int(it_t.sum()),
-                 kernel_newton_iters=int(it_k.sum()), max_feature_iters=int(it_t.max()),
-                 bytes=nbytes(*imgs, tw["pts_prev"], tw["pts_init"]) + P * (8 + 1 + 4),
-                 ops=P * n_lv * LK_OPS_PER_LEVEL + int(it_t.sum()) * LK_OPS_PER_ITER,
+        c = dict(name=name, path=path, B=B, P=P, n_first=tw.get("n_first", P), levels=n_lv,
+                 per_frame=1 / B,
+                 newton_iters=int(it_t.sum()), kernel_newton_iters=int(it_k.sum()),
+                 max_feature_iters=int(it_t.max()),
+                 bytes=nbytes(*imgs, tw["pts_prev"], tw["pts_init"]) + B * P * (8 + 1 + 4),
+                 ops=B * P * n_lv * LK_OPS_PER_LEVEL + int(it_t.sum()) * LK_OPS_PER_ITER,
                  ms=device_ms(call, 50),
                  plain_ms=device_ms(lambda: klt.track_pyramid_plain(**tw, **lk_args), 3,
                                     runs=3, sync_free=False),
                  library_ms=None)
         c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
         out.append(c)
-        lines.append(f"{name} P={P} x{n_lv} levels p95 {p95:.2e} px agree {agree:.4f} "
+        lines.append(f"{name} B={B} P={B}x{P} x{n_lv} levels agree, "
                      f"{c['newton_iters']} iterations ({c['kernel_newton_iters']} in the "
                      f"kernel, at most {c['max_feature_iters']} a feature): "
                      f"{c['ms']:.5f} ms vs twin {c['plain_ms']:.3f} ms, bound "
-                     f"{c['bound_ms'] * 1e3:.3f} us "
-                     f"({c['bound_by']})")
-    tot = summed(out)
-    log(f"[kernel lk] {'; '.join(lines)}; LK device ms per frame {tot['ms']:.5f}")
+                     f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']})")
+    tot = summed([c for c in out if c["path"] == "slice"])
+    tot_b = summed([c for c in out if c["path"] == "batch"])
+    tot_s = summed([c for c in out if c["path"] == "suite B=2"])
+    log(f"[kernel lk] {'; '.join(lines)}; worst gap {worst_err:.2e} px; LK device ms per "
+        f"frame {tot['ms']:.5f} (B=1), per sequence-frame {tot_b['ms']:.5f} (B={BATCH}) "
+        f"and {tot_s['ms']:.5f} (B={SUITE_B})")
     return dict(name="lk_pyramid", route="cuda", source="vio_msckf_torch/csrc/lk_pyramid.cu",
                 replaces="vio_msckf_tpu/ops/klt_pallas.py:63", max_abs_err=worst_err,
                 library_note="no single PyTorch call computes an LK pyramid walk",
-                calls=out, **tot)
+                calls=out, batch=tot_b, **tot)
 
 
 def _spd_active_ops(B, k):
@@ -364,23 +459,36 @@ def _spd_active_ops(B, k):
     return int(ops.sum()), float(a.mean())
 
 
+# SPD call shapes: (path, sequences, systems per sequence, m, state dim D,
+# atol factor, rtol). The lost path (m = 4 x clones) and the prune path
+# (m = 8) of the one-sequence, the 4-sequence and the suite's 2-sequence
+# runs, and the 30-clone lost path (D = 201), the only caller of the
+# kernel's m > 80 variant.
+SPD_CALLS = (("slice", 1, 128, 80, 141, 2e-3, 2e-3), ("slice", 1, 160, 8, 141, 1e-4, 1e-3),
+             ("batch", BATCH, 128, 80, 141, 2e-3, 2e-3),
+             ("batch", BATCH, 160, 8, 141, 1e-4, 1e-3),
+             ("suite B=2", SUITE_B, 128, 80, 141, 2e-3, 2e-3),
+             ("suite B=2", SUITE_B, 160, 8, 141, 1e-4, 1e-3),
+             ("30 clones", 1, 128, 120, 201, 2e-3, 2e-3))
+
+
 def check_spd(dev):
     import torch
     from vio_msckf_torch.ops import spd
 
     rng = np.random.default_rng(1)
-    D, s = 141, 0.035 ** 2
-    A = torch.as_tensor(rng.normal(size=(D, D)) * 0.05, dtype=torch.float32, device=dev)
-    P = A @ A.T
+    s = 0.035 ** 2
     lines, worst, calls = [], 0.0, []
-    # (F, m, atol factor, rtol): the lost path and the prune path.
-    for F, m, atol_f, rtol in ((128, 80, 2e-3, 2e-3), (160, 8, 1e-4, 1e-3)):
-        Hm = torch.as_tensor(rng.normal(size=(F, m, D)) * 0.5, dtype=torch.float32, device=dev)
-        n_active = torch.as_tensor(rng.integers(4, m + 1, size=F), device=dev)
+    for path, nseq, F, m, D, atol_f, rtol in SPD_CALLS:
+        A = torch.as_tensor(rng.normal(size=(D, D)) * 0.05, dtype=torch.float32, device=dev)
+        P = A @ A.T
+        Hm = torch.as_tensor(rng.normal(size=(nseq * F, m, D)) * 0.5, dtype=torch.float32,
+                             device=dev)
+        n_active = torch.as_tensor(rng.integers(4, m + 1, size=nseq * F), device=dev)
         Hm = Hm * (torch.arange(m, device=dev)[None, :] < n_active[:, None])[..., None]
         B = Hm @ P @ Hm.transpose(1, 2) + s * torch.eye(m, device=dev)
-        B = ((B + B.transpose(1, 2)) / 2.0).contiguous()
-        R = torch.as_tensor(rng.normal(size=(F, m, 4)), dtype=torch.float32, device=dev)
+        B = ((B + B.transpose(1, 2)) / 2.0).reshape(nseq, F, m, m).contiguous()
+        R = torch.as_tensor(rng.normal(size=(nseq, F, m, 4)), dtype=torch.float32, device=dev)
         X = spd.spd_solve(B, R)
         Xp = spd.spd_solve_plain(B, R)
         torch.cuda.synchronize()
@@ -391,32 +499,95 @@ def check_spd(dev):
         err = float((X - Xp).abs().max())
         used = float(((X - Xp).abs() / (atol_f * scale + rtol * Xp.abs())).max())
         if not used <= 1.0:
-            raise AssertionError(f"SPD m={m}: kernel vs twin max err {err:.3g}, "
-                                 f"{used:.3g} of the per-row tolerance")
+            raise AssertionError(f"SPD {path} m={m} F={nseq * F}: kernel vs twin max err "
+                                 f"{err:.3g}, {used:.3g} of the per-row tolerance")
         worst = max(worst, err)
-        ops, mean_active = _spd_active_ops(B, 4)
-        c = dict(F=F, m=m, k=4, per_frame=1, mean_active_pivots=mean_active,
+        ops, mean_active = _spd_active_ops(B.reshape(-1, m, m), 4)
+        c = dict(path=path, F=nseq * F, m=m, k=4,
+                 per_frame=1 / nseq, mean_active_pivots=mean_active,
                  bytes=nbytes(B, R, X), ops=ops,
                  ms=device_ms(lambda: spd.spd_solve(B, R), 200),
                  plain_ms=device_ms(lambda: spd.spd_solve_plain(B, R), 50),
                  library_ms=device_ms(lambda: torch.linalg.solve_ex(B, R), 50))
         c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
         calls.append(c)
-        lines.append(f"m={m} F={F} max err {err:.2e} ({used:.2e} of the per-row tolerance); "
-                     f"{c['ms']:.5f} ms vs twin {c['plain_ms']:.5f} ms, solve_ex "
+        lines.append(f"{path} m={m} F={nseq * F} max err {err:.2e} ({used:.2e} of the per-row "
+                     f"tolerance); {c['ms']:.5f} ms vs twin {c['plain_ms']:.5f} ms, solve_ex "
                      f"{c['library_ms']:.5f} ms, bound {c['bound_ms'] * 1e3:.3f} us "
                      f"({c['bound_by']}, {mean_active:.1f} active pivots)")
     log(f"[kernel spd_gj] {'; '.join(lines)}")
     return dict(name="spd_gj", route="cuda", source="vio_msckf_torch/csrc/spd_gj.cu",
                 replaces="vio_msckf_tpu/ops/spd_pallas.py:47", max_abs_err=worst,
-                calls=calls, **summed(calls))
+                calls=calls, batch=summed([c for c in calls if c["path"] == "batch"]),
+                **summed([c for c in calls if c["path"] == "slice"]))
+
+
+COUNTERS = {"fast_nms": ("vio_msckf_torch.ops.fast", "fast_nms"),
+            "lk_pyramid": ("vio_msckf_torch.ops.klt", "track_pyramid"),
+            "spd_gj": ("vio_msckf_torch.ops.spd", "spd_solve")}
+
+
+def _counters():
+    import importlib
+
+    return {name: getattr(importlib.import_module(mod), fn)
+            for name, (mod, fn) in COUNTERS.items()}
+
+
+def counted(path, run):
+    """Run one path with every kernel counter set to 0 just before and read
+    just after; fails unless every kernel launched in it. Returns (run's
+    result, {kernel: launches}, {kernel: {call shape: launches}})."""
+    import torch
+
+    counters = _counters()
+    for c in counters.values():
+        c.by_shape.clear()
+    result = run()
+    torch.cuda.synchronize()
+    shapes = {k: dict(c.by_shape) for k, c in counters.items()}
+    launches = {k: sum(s.values()) for k, s in shapes.items()}
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the {path} path")
+    return result, launches, shapes
+
+
+def host_syncs(step):
+    """Host synchronisations made by one call of step()."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def trajectory_metrics(name, est, gt, n):
+    """ATE/RPE of one trajectory; fails on a wrong shape, a non-finite
+    value or an ATE above the bench's bound."""
+    from vio_msckf_torch.utils.metrics import ate_rmse, rpe_rmse
+
+    if est.shape != (n, 3):
+        raise AssertionError(f"{name}: trajectory shape {est.shape}, expected {(n, 3)}")
+    ate = ate_rmse(est, gt, align=False)
+    rpe = rpe_rmse(est, gt)
+    if (not np.isfinite(est).all() or not math.isfinite(ate) or not math.isfinite(rpe)
+            or ate > ATE_BOUND_M):
+        raise AssertionError(f"{name}: trajectory diverged: ATE {ate} m, RPE {rpe} m")
+    return ate, rpe
 
 
 def phase_slice(cfg, frames, init, gt, n, dev):
     import torch
-    from vio_msckf_torch.utils.metrics import ate_rmse, rpe_rmse
     from vio_msckf_torch.engine import VIOEngine
-    from vio_msckf_torch.ops import fast, klt, spd
 
     eng = VIOEngine(cfg, dev)
 
@@ -424,46 +595,25 @@ def phase_slice(cfg, frames, init, gt, n, dev):
         carry = eng.init(init["q0"], init["bg0"], init["gravity"])
         return eng.run_sequence(carry, frames)
 
-    counters = (fast.fast_nms, klt.track_pyramid, spd.spd_solve)
-    for c in counters:
-        c.launches = 0
     t0 = time.perf_counter()
-    carry, outs = run()
-    torch.cuda.synchronize()
+    (carry, outs), launches, shapes = counted("slice", run)
     first_s = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
 
     est = outs.p.cpu().numpy()
-    if est.shape != (n, 3):
-        raise AssertionError(f"trajectory shape {est.shape}, expected {(n, 3)}")
-    ate = ate_rmse(est, gt, align=False)
-    rpe = rpe_rmse(est, gt)
+    ate, rpe = trajectory_metrics("slice", est, gt, n)
     resets = int(outs.did_reset.sum())
     log(f"[slice] {n} frames: ATE {ate:.4f} m, RPE {rpe:.4f} m (unaligned; bench bound "
         f"{ATE_BOUND_M} m), online resets {resets}, first pass {first_s:.2f} s")
     log(f"[slice] launches in that run: " + ", ".join(
         f"{k} {v} ({v / n:.2f}/frame)" for k, v in launches.items()))
-    if not np.isfinite(est).all() or not math.isfinite(ate) or ate > ATE_BOUND_M:
-        raise AssertionError(f"trajectory diverged: ATE {ate} m")
-    for name, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
 
     # Host synchronisations issued by one warm step.
     frame = {k: v[n // 2] for k, v in frames.items()}
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            eng.step(carry, frame)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = [str(w.message).splitlines()[0] for w in caught
-             if "called a synchronizing" in str(w.message)]
+    syncs = host_syncs(lambda: eng.step(carry, frame))
     log(f"[slice] host syncs in one warm step: {len(syncs)}"
         + (f" ({'; '.join(sorted(set(syncs)))})" if syncs else ""))
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in one step")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -472,7 +622,164 @@ def phase_slice(cfg, frames, init, gt, n, dev):
     sec = time.perf_counter() - t0
     log(f"[slice] second pass {sec:.3f} s = {n / sec:.2f} frames/s (host clock, "
         f"ends in synchronize)")
-    return launches
+    return dict(launches=launches, shapes=shapes, est=est, eng=eng, carry=carry,
+                frame=frame, fps=n / sec)
+
+
+def launch_profile(step):
+    """cudaLaunchKernel (and cuLaunchKernel) calls, device kernel
+    time and kernels run by name, of one step() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = {e.key: e.count for e in events if "LaunchKernel" in e.key}
+    device_us, kernels = 0.0, {}
+    for e in events:
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            device_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+            kernels[e.key] = e.count
+    return launches, device_us / 1e3, kernels
+
+
+def phase_batch(cfg, dev, single):
+    import torch
+    from vio_msckf_torch.engine import VIOEngine
+
+    t0 = time.perf_counter()
+    frames, inits, gts, n = stack_workloads(
+        [build_workload(cfg, dev, dict(seed=4 + b)) for b in range(BATCH)])
+    torch.cuda.synchronize()
+    log(f"[batch] {BATCH} sequences (seeds 4..{3 + BATCH}) x {n} frames rendered in "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng = VIOEngine(cfg, dev)
+
+    def run():
+        return eng.run_batch(eng.init_batch(inits), frames)
+
+    t0 = time.perf_counter()
+    (carry, outs), launches, shapes = counted("batch", run)
+    first_s = time.perf_counter() - t0
+    est = outs.p.cpu().numpy()
+    metrics = [trajectory_metrics(f"batch sequence {b}", est[b], gts[b], n)
+               for b in range(BATCH)]
+    log(f"[batch] B={BATCH}, {n} frames, first pass {first_s:.2f} s: ATE " + ", ".join(
+        f"{a:.4f}" for a, _ in metrics) + " m; RPE " + ", ".join(
+        f"{r:.4f}" for _, r in metrics) + f" m (bound {ATE_BOUND_M} m; TPU v5e anchor "
+        f"{TPU_ANCHOR_ATE['4-sequence batch']} m, the JAX package's)")
+    gap = float(np.abs(est[0] - single["est"]).max())
+    log(f"[batch] member 0 against the one-sequence run of the same workload: max "
+        f"per-frame position gap {gap:.3g} m (bound 1e-4 m)")
+    if not gap <= 1e-4:
+        raise AssertionError(f"batch member 0 is {gap} m from the one-sequence run")
+    per_step = {k: v / n for k, v in launches.items()}
+    log(f"[batch] hand-kernel launches per batched step: " + ", ".join(
+        f"{k} {v:g}" for k, v in per_step.items()))
+    if per_step != {"fast_nms": 1, "lk_pyramid": 3, "spd_gj": 2}:
+        raise AssertionError(f"launches per batched step {per_step}, expected 3/1/2")
+
+    frame = {k: v[:, n // 2] for k, v in frames.items()}
+    syncs = host_syncs(lambda: eng.step_batch(carry, frame))
+    log(f"[batch] host syncs in one warm batched step: {len(syncs)}"
+        + (f" ({'; '.join(sorted(set(syncs)))})" if syncs else ""))
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in one batched step")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    log(f"[batch] second pass {sec:.3f} s = {BATCH * n / sec:.2f} aggregate frames/s "
+        f"({n / sec:.2f} steps/s; one sequence in this call: {single['fps']:.2f} frames/s)")
+
+    prof = {}
+    for name, step in (("B=1", lambda: single["eng"].step(single["carry"], single["frame"])),
+                       (f"B={BATCH}", lambda: eng.step_batch(carry, frame))):
+        step()                                       # warm the profiler's path
+        kl, dev_ms, kernels = launch_profile(step)
+        prof[name] = dict(launch_calls=kl, device_ms=dev_ms, kernels=kernels)
+        log(f"[batch] one warm step at {name}: {sum(kl.values())} kernel launches ("
+            + ", ".join(f"{k} {v}" for k, v in sorted(kl.items())) + f"), device kernel "
+            f"time {dev_ms:.3f} ms (torch.profiler)")
+    # Where the batch adds launches: the device kernels whose count grows
+    # from B = 1 to B = 4 (one code path, so a growth is a library call
+    # issuing work per matrix or per sequence).
+    k1, k4 = prof["B=1"]["kernels"], prof[f"B={BATCH}"]["kernels"]
+    grow = sorted(((k4.get(k, 0) - k1.get(k, 0), k) for k in set(k1) | set(k4)), reverse=True)
+    log("[batch] kernels whose count grows from B=1 to B=%d: " % BATCH + "; ".join(
+        f"{k[:70]} {k1.get(k, 0)} -> {k4.get(k, 0)}" for d, k in grow[:6] if d > 0))
+    return dict(launches=launches, shapes=shapes, fps=BATCH * n / sec, profile=prof)
+
+
+def phase_suite(cfg, dev):
+    from vio_msckf_torch.config import FilterConfig
+    from vio_msckf_torch.data.render import HOSTILE_AUGS
+    from vio_msckf_torch.engine import VIOEngine
+
+    out = {}
+    # Fast motion and the hostile world (seed 4, rendered with
+    # HOSTILE_AUGS by the port) as one B = 2 batch.
+    names = ("fast motion", "hostile")
+    workloads = [build_workload(cfg, dev, FAST_MOTION),
+                 build_workload(cfg, dev, augs=HOSTILE_AUGS)]
+    frames, inits, gts, n = stack_workloads(workloads)
+    eng = VIOEngine(cfg, dev)
+    t0 = time.perf_counter()
+    (_, outs), launches, shapes = counted(
+        "suite", lambda: eng.run_batch(eng.init_batch(inits), frames))
+    sec = time.perf_counter() - t0
+    est = outs.p.cpu().numpy()
+    for b, name in enumerate(names):
+        ate, rpe = trajectory_metrics(name, est[b], gts[b], n)
+        out[name] = dict(ate=ate, rpe=rpe, resets=int(outs.did_reset[b].sum()))
+        log(f"[suite] {name}: ATE {ate:.4f} m, RPE {rpe:.4f} m, online resets "
+            f"{out[name]['resets']} (TPU v5e anchor ATE {TPU_ANCHOR_ATE[name]} m, the JAX "
+            f"package's)")
+    log(f"[suite] fast motion + hostile as one B=2 batch: {n} frames in {sec:.2f} s, "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    suite_launches = {"suite B=2": (launches, shapes)}
+    # Two different sequences in one batch: each member against the same
+    # sequence run alone, so that a member reading the other's rows shows.
+    for b, (name, (dframes, init, _, _)) in enumerate(zip(names, workloads)):
+        _, alone = eng.run_sequence(eng.init(init["q0"], init["bg0"], init["gravity"]),
+                                    dframes)
+        gap = float(np.abs(est[b] - alone.p.cpu().numpy()).max())
+        log(f"[suite] {name}: B=2 member {b} against the sequence run alone: max "
+            f"per-frame position gap {gap:.3g} m (bound 1e-4 m)")
+        if not gap <= 1e-4:
+            raise AssertionError(f"suite member {b} ({name}) is {gap} m from its run alone")
+
+    # The 30-clone window (bench.py: FilterConfig(max_cam_state_size=30)).
+    big = cfg.replace(filter=FilterConfig(max_cam_state_size=CLONES_30))
+    dframes, init, gt, n = build_workload(big, dev)
+    eng = VIOEngine(big, dev)
+    t0 = time.perf_counter()
+    (_, outs), launches, shapes = counted("30 clones", lambda: eng.run_sequence(
+        eng.init(init["q0"], init["bg0"], init["gravity"]), dframes))
+    sec = time.perf_counter() - t0
+    ate, rpe = trajectory_metrics("30 clones", outs.p.cpu().numpy(), gt, n)
+    out["30 clones"] = dict(ate=ate, rpe=rpe, resets=int(outs.did_reset.sum()))
+    log(f"[suite] 30 clones (D={big.state_dim}): ATE {ate:.4f} m, RPE {rpe:.4f} m, online "
+        f"resets {out['30 clones']['resets']}, {n} frames in {sec:.2f} s, launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" (TPU v5e anchor ATE {TPU_ANCHOR_ATE['30 clones']} m, the JAX package's)")
+    suite_launches["30 clones"] = (launches, shapes)
+    return out, suite_launches
+
+
+def _shape_key(name, call):
+    """The wrapper's by_shape key of a timed call."""
+    if name == "fast_nms":
+        return tuple(call["shape"])
+    if name == "lk_pyramid":
+        return (call["B"], call["P"], call["n_first"])
+    return (call["F"], call["m"], call["k"])
 
 
 def main():
@@ -485,11 +792,30 @@ def main():
     cfg = euroc_config()
     frames, init, gt, n = phase_workload(cfg, dev)
     entries = [check_fast(frames, n, dev), check_lk(cfg, frames, dev), check_spd(dev)]
-    launches = phase_slice(cfg, frames, init, gt, n, dev)
-    by_counter = {"fast_nms": "fast_nms", "lk_pyramid": "track_pyramid", "spd_gj": "spd_solve"}
+    single = phase_slice(cfg, frames, init, gt, n, dev)
+    batch = phase_batch(cfg, dev, single)
+    _, suite_launches = phase_suite(cfg, dev)
+    paths = {"slice": (single["launches"], single["shapes"]),
+             "batch": (batch["launches"], batch["shapes"]), **suite_launches}
     for e in entries:
-        e["launches"] = launches[by_counter[e["name"]]]
+        name = e["name"]
+        e["launches"] = single["launches"][name]
         e["launches_per_frame"] = e["launches"] / n
+        e["launches_by_path"] = {p: l[name] for p, (l, _) in paths.items()}
+        e["launches_by_shape"] = {p: {str(list(k)): v for k, v in s[name].items()}
+                                  for p, (_, s) in paths.items()}
+        for c in e["calls"]:
+            c["launches"] = paths[c["path"]][1][name].get(_shape_key(name, c), 0)
+            if c["launches"] <= 0:
+                raise AssertionError(f"{name} call shape {_shape_key(name, c)} was not "
+                                     f"launched on the {c['path']} path")
+        # Every shape a path launched was held against the twin in phase 4.
+        checked = {_shape_key(name, c) for c in e["calls"]}
+        for p, (_, s) in paths.items():
+            unchecked = sorted(set(s[name]) - checked)
+            if unchecked:
+                raise AssertionError(f"{name}: the {p} path launched call shapes "
+                                     f"{unchecked} that no check held against the twin")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

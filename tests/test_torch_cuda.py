@@ -1,5 +1,9 @@
 """The hand-written CUDA kernels against their PyTorch twins, on the card.
 
+The kernels take the batch of sequences the port steps together: FAST a
+(B, H, W) stack of images, LK (B, H_l, W_l) pyramid levels with points
+(B, P, 2), SPD any leading axes folded into its flat axis of systems.
+
 The test skips without a CUDA device (the kernels have no CPU mode).
 This file imports no jax, so it also runs on a machine without it:
 
@@ -55,23 +59,48 @@ def _fast_inputs(cuda):
     blocky = np.kron(rng.integers(0, 256, (121, 189)), np.ones((4, 4)))[:480, :752]
     imgs = [cam0[k] for k in range(len(idx))]
     imgs += [torch.as_tensor(blocky, dtype=torch.float32, device=cuda)]
-    imgs += pyramid.build_pyramid(imgs[1], 3)[1:]
+    imgs += [x[0] for x in pyramid.build_pyramid(imgs[1][None], 3)[1:]]
     imgs += [imgs[1][200:297, 300:431]]
     return [x.contiguous() for x in imgs]
 
 
+def _launches(wrapper):
+    """Kernel launches a wrapper has counted, over all its call shapes."""
+    return sum(wrapper.by_shape.values())
+
+
+def _misaligned(x):
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte
+    boundary: no plane is 16-byte aligned (the kernel's scalar path)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def _check_fast(cuda):
     # Only subtract/min/max: the kernel must equal the twin bit for bit,
-    # ties included, at every threshold.
-    for img in _fast_inputs(cuda):
+    # ties included, at every threshold, in every plane of a batch.
+    imgs = _fast_inputs(cuda)
+    full = torch.stack([x for x in imgs if x.shape == (480, 752)])   # 4 frames + blocky
+    batches = [x[None] for x in imgs] + [
+        full,                                          # B = 5 at the main path's width
+        full[:4].contiguous(),
+        torch.stack([pyramid.build_pyramid(x[None], 3)[3][0] for x in imgs[:4]]),  # W % 4 != 0
+        torch.stack([x[200:297, 300:431] for x in imgs[:3]]).contiguous(),   # H*W odd
+        _misaligned(full[:3]),                         # planes off 16-byte boundaries
+    ]
+    for batch in batches:
         for thr in (0.0, 15.0, 40.0):
-            before = fast.fast_nms.launches
-            out = fast.fast_nms(img, thr)
-            assert fast.fast_nms.launches == before + 1
-            want = fast.fast_score_map(img, thr)
-            assert torch.equal(out, want), (tuple(img.shape), thr, int((out != want).sum()))
-            if thr == 15.0 and img.shape == (480, 752):
-                assert int((out > 0).sum()) > 100
+            before = _launches(fast.fast_nms)
+            out = fast.fast_nms(batch, thr)
+            assert _launches(fast.fast_nms) == before + 1     # one launch per stack
+            want = fast.fast_score_map(batch, thr)
+            for b in range(batch.shape[0]):
+                assert torch.equal(out[b], want[b]), (tuple(batch.shape), b, thr,
+                                                      int((out[b] != want[b]).sum()))
+                if thr == 15.0 and batch.shape[1:] == (480, 752):
+                    assert int((out[b] > 0).sum()) > 100
 
 
 def _lk_close(got, want, p95_max=2e-2, agree_min=0.99):
@@ -85,27 +114,55 @@ def _lk_close(got, want, p95_max=2e-2, agree_min=0.99):
     return s2
 
 
-def _check_lk(cuda):
-    img0, img1, pts = _textured_pair()
-    p0 = pyramid.build_pyramid(torch.from_numpy(img0), 3)
-    p1 = pyramid.build_pyramid(torch.from_numpy(img1), 3)
-    assert len(p0) == 4 and min(p0[-1].shape) >= 15 + 8   # every level tracked
-    want = klt.pyramidal_lk(p0, p1, torch.from_numpy(pts), torch.from_numpy(pts))
+def _check_lk(cuda, B):
+    # B sequences, each its own textured pair and points; one launch for
+    # all B * P features, held against the twin per sequence.
+    pairs = [_textured_pair(seed=5 + b) for b in range(B)]
+    stack = lambda i: torch.from_numpy(np.stack([p[i] for p in pairs]))   # noqa: E731
+    p0, p1, pts = pyramid.build_pyramid(stack(0), 3), pyramid.build_pyramid(stack(1), 3), stack(2)
+    assert len(p0) == 4 and min(p0[-1].shape[1:]) >= 15 + 8   # every level tracked
+    want = klt.pyramidal_lk(p0, p1, pts, pts)
     on = [[x.to(cuda) for x in p] for p in (p0, p1)]
-    before = klt.track_pyramid.launches
-    got = klt.pyramidal_lk(*on, torch.from_numpy(pts).to(cuda), torch.from_numpy(pts).to(cuda))
-    assert klt.track_pyramid.launches == before + 1   # the 4-level walk in one launch
-    assert _lk_close(got, want).sum() > 60
+    before = _launches(klt.track_pyramid)
+    got = klt.pyramidal_lk(*on, pts.to(cuda), pts.to(cuda))
+    assert _launches(klt.track_pyramid) == before + 1   # the 4-level walk in one launch
+    for b in range(B):
+        assert _lk_close([x[b] for x in got], [x[b] for x in want]).sum() > 60
     # lk_verify: both backward checks (pair A img1->img0 from the tracked
     # points, pair B img0->img1 from the seeds) in one launch.
-    pts_t, g_t = torch.from_numpy(pts), got[0].cpu()
-    want_v = klt.lk_verify(p1, p0, p0, p1, g_t, pts_t, pts_t, g_t)
-    before = klt.track_pyramid.launches
-    got_v = klt.lk_verify(on[1], on[0], on[0], on[1], g_t.to(cuda), pts_t.to(cuda),
-                          pts_t.to(cuda), g_t.to(cuda))
-    assert klt.track_pyramid.launches == before + 1
+    g_t = got[0].cpu()
+    want_v = klt.lk_verify(p1, p0, p0, p1, g_t, pts, pts, g_t)
+    before = _launches(klt.track_pyramid)
+    got_v = klt.lk_verify(on[1], on[0], on[0], on[1], g_t.to(cuda), pts.to(cuda),
+                          pts.to(cuda), g_t.to(cuda))
+    assert _launches(klt.track_pyramid) == before + 1
     for gv, wv in zip(got_v, want_v):
-        assert _lk_close(gv, wv).sum() > 60
+        for b in range(B):
+            assert _lk_close([x[b] for x in gv], [x[b] for x in wv]).sum() > 60
+
+
+def _check_lk_plane_border(cuda):
+    # Sequence 0's features on its last rows, sequence 1's on its first
+    # rows, on different images: a kernel that clamps rows on the flat
+    # (B * H, W) stack instead of within each plane, or reads plane 0 for
+    # every sequence, gives other results than the twin.
+    pairs = [_textured_pair(seed=s) for s in (8, 9, 10, 11)]
+    H, W = pairs[0][0].shape
+    rng = np.random.default_rng(12)
+    x = rng.uniform(10, W - 10, (4, 40))
+    y = np.stack([H - 1 - rng.uniform(0, 3, 40), rng.uniform(0, 3, 40),
+                  rng.uniform(5, H - 5, 40), H - 1 - rng.uniform(0, 3, 40)])
+    pts = torch.as_tensor(np.stack([x, y], axis=-1), dtype=torch.float32)
+    init = pts + torch.as_tensor(rng.uniform(-2, 2, pts.shape), dtype=torch.float32)
+    stack = lambda i: torch.from_numpy(np.stack([p[i] for p in pairs]))   # noqa: E731
+    p0, p1 = pyramid.build_pyramid(stack(0), 3), pyramid.build_pyramid(stack(1), 3)
+    g2, s2, e2 = klt.pyramidal_lk(p0, p1, pts, init)
+    g, s, e = (t.cpu() for t in klt.pyramidal_lk(
+        [t.to(cuda) for t in p0], [t.to(cuda) for t in p1], pts.to(cuda), init.to(cuda)))
+    assert 0 < int(s2.sum()) < s2.numel()
+    torch.testing.assert_close(s, s2, rtol=0, atol=0)
+    torch.testing.assert_close(g[s2], g2[s2], rtol=0, atol=1e-3)
+    torch.testing.assert_close(e[s2], e2[s2], rtol=0, atol=1e-3)
 
 
 def _check_lk_border(cuda):
@@ -124,19 +181,19 @@ def _check_lk_border(cuda):
             pts += [[e, y], [W - 1 - e, y], [x, e], [x, H - 1 - e]]
     pts = np.asarray(pts, np.float32)
     init = pts + rng.uniform(-3, 3, pts.shape).astype(np.float32)
-    p0 = pyramid.build_pyramid(torch.from_numpy(img0), 3)
-    p1 = pyramid.build_pyramid(torch.from_numpy(img1), 3)
-    g2, s2, e2 = klt.pyramidal_lk(p0, p1, torch.from_numpy(pts), torch.from_numpy(init))
+    p0 = pyramid.build_pyramid(torch.from_numpy(img0)[None], 3)
+    p1 = pyramid.build_pyramid(torch.from_numpy(img1)[None], 3)
+    pts, init = torch.from_numpy(pts)[None], torch.from_numpy(init)[None]
+    g2, s2, e2 = klt.pyramidal_lk(p0, p1, pts, init)
     g, s, e = (x.cpu() for x in klt.pyramidal_lk(
-        [x.to(cuda) for x in p0], [x.to(cuda) for x in p1],
-        torch.from_numpy(pts).to(cuda), torch.from_numpy(init).to(cuda)))
-    assert 0 < int(s2.sum()) < len(pts)
+        [x.to(cuda) for x in p0], [x.to(cuda) for x in p1], pts.to(cuda), init.to(cuda)))
+    assert 0 < int(s2.sum()) < pts.shape[1]
     torch.testing.assert_close(s, s2, rtol=0, atol=0)
     torch.testing.assert_close(g[s2], g2[s2], rtol=0, atol=1e-3)
     torch.testing.assert_close(e[s2], e2[s2], rtol=0, atol=1e-3)
 
 
-def _check_spd(cuda, F, m, atol, rtol, n_active=None):
+def _check_spd(cuda, F, m, atol, rtol, n_active=None, lead=None):
     # The reference's bounds between Gauss-Jordan and LAPACK
     # (tests/test_spd_pallas.py): SPD systems H P H^T + s I, whose rows past
     # each system's active count are s * I padding (skipped pivots).
@@ -150,9 +207,12 @@ def _check_spd(cuda, F, m, atol, rtol, n_active=None):
     B = Hm @ (A @ A.T) @ Hm.transpose(0, 2, 1) + 0.035 ** 2 * np.eye(m)
     B = torch.as_tensor((B + B.transpose(0, 2, 1)) / 2.0, dtype=torch.float32, device=cuda)
     R = torch.as_tensor(rng.normal(size=(F, m, 4)), dtype=torch.float32, device=cuda)
-    before = spd.spd_solve.launches
+    if lead is not None:          # leading axes (sequences, features)
+        B, R = B.reshape(lead + (m, m)), R.reshape(lead + (m, 4))
+    before = _launches(spd.spd_solve)
     got, want = spd.spd_solve(B, R), spd.spd_solve_plain(B, R)
-    assert spd.spd_solve.launches == before + 1
+    assert _launches(spd.spd_solve) == before + 1   # one launch for all systems
+    assert got.shape == R.shape
     # Each row against its own magnitude: a padding row's X = R / s is ~1e3
     # times a live row's, so one scale for the batch would let any live
     # value pass.
@@ -164,14 +224,21 @@ def _check_spd(cuda, F, m, atol, rtol, n_active=None):
 def test_kernels_match_twins(cuda):
     # One test item: see tests/test_torch_slice.py on xdist's file order.
     _check_fast(cuda)
-    _check_lk(cuda)
+    _check_lk(cuda, 1)
+    _check_lk(cuda, 4)
     _check_lk_border(cuda)
+    _check_lk_plane_border(cuda)
     # The main path's two shapes (lost path, prune path), then edge cases:
     # one system; an m that is not a multiple of the 16-wide thread tile;
     # the 30-clone lost path (m=120, the larger register tile); all pivots
     # padding (diagonal B) or all but one; no padding at all.
     _check_spd(cuda, 128, 80, 2e-3, 2e-3)
     _check_spd(cuda, 160, 8, 1e-4, 1e-3)
+    # The batched step's shapes: 4 sequences x 128 lost candidates (m=80)
+    # and x 160 prune features (m=8); the 30-clone lost path (m=120).
+    _check_spd(cuda, 512, 80, 2e-3, 2e-3, lead=(4, 128))
+    _check_spd(cuda, 640, 8, 1e-4, 1e-3, lead=(4, 160))
+    _check_spd(cuda, 128, 120, 2e-3, 2e-3, lead=(1, 128))
     _check_spd(cuda, 1, 80, 2e-3, 2e-3)
     _check_spd(cuda, 3, 76, 2e-3, 2e-3)
     _check_spd(cuda, 8, 120, 2e-3, 2e-3)

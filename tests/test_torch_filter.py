@@ -3,7 +3,8 @@ convert.py) with the JAX package on the CPU, at a reduced config (6-clone
 window so the prune path runs, 32 feature slots, 16 lost candidates).
 
 The JAX MSCKF runs once over ~40 simulator frames (one scan compile); its
-final state feeds the unit comparisons.
+final state feeds the unit comparisons. The port's filter takes a leading
+batch axis B (sequences); these checks call it at B = 1.
 
 The checks form one test item on purpose: under `pytest -n N --dist
 loadfile`, pytest-xdist hands out files in order of their item count,
@@ -40,6 +41,7 @@ from vio_msckf_torch.filter import state as tstate
 from vio_msckf_torch.filter import triangulation as ttri
 from vio_msckf_torch.filter import update as tupd
 from vio_msckf_torch.filter.msckf import MSCKF as TMSCKF
+from vio_msckf_torch.tensors import index_record, unsqueeze_record
 
 SIZES = dict(max_cam_state_size=6, max_features=32, max_lost_candidates=16)
 CFG = jconfig.euroc_config(filter=jconfig.FilterConfig(**SIZES))
@@ -65,6 +67,20 @@ def _t(a):
     return torch.as_tensor(np.asarray(a))
 
 
+def _b(a):
+    """A numpy array as a batch of one."""
+    return _t(a)[None]
+
+
+def _state(tree):
+    """A numpy-leaved JAX state as the port's record at B = 1."""
+    return unsqueeze_record(convert.from_numpy_tree(tree, CPU))
+
+
+def _first(rec):
+    return convert.to_numpy_tree(index_record(rec, 0))
+
+
 @pytest.fixture(scope="module")
 def sim():
     """JAX and port MSCKF over the same ~40 simulator frames."""
@@ -76,10 +92,10 @@ def sim():
         jk.init(init["q0"], init["bg0"], init["gravity"]),
         {k: jnp.asarray(v) for k, v in fr.items()})
     tk = TMSCKF(TCFG, device=CPU)
-    _, touts = tk.run_sequence(tk.init(init["q0"], init["bg0"], init["gravity"]),
-                               {k: torch.as_tensor(v) for k, v in fr.items()})
+    _, touts = tk.run_sequence(tk.init_batch([init]),
+                               {k: torch.as_tensor(v)[None] for k, v in fr.items()})
     return dict(seq=seq, frames=frames, init=init, first=first, jouts=_np(jouts),
-                touts=touts, state=_np(carry[0]), fmap=_np(carry[1]),
+                touts=index_record(touts, 0), state=_np(carry[0]), fmap=_np(carry[1]),
                 params=jk.params, tparams=tk.params)
 
 
@@ -126,9 +142,9 @@ def _check_make_params_and_convert_roundtrip(sim):
     # Fresh states agree, and a converted JAX state round-trips exactly.
     jk = JMSCKF(CFG)
     fresh = _np(jk.init())
-    ours = TMSCKF(TCFG, device=CPU).init()
+    ours = TMSCKF(TCFG, device=CPU).init_batch([{}])
     for j, t in zip(fresh, ours):
-        for name, a in convert.to_numpy_tree(t).items():
+        for name, a in _first(t).items():
             np.testing.assert_array_equal(a, np.asarray(getattr(j, name)), err_msg=name)
     for tree in (sim["state"], sim["fmap"]):
         back = convert.to_numpy_tree(convert.from_numpy_tree(tree, CPU))
@@ -145,18 +161,18 @@ def _check_propagate_and_augment(sim):
     jstate_ = jax.tree_util.tree_map(jnp.asarray, sim["state"])
     jp, ja = jax.jit(lambda s, *a: (lambda p: (p, jaug.augment(p)))(
         jprop.propagate(s, sim["params"], *a)))(jstate_, *map(jnp.asarray, imu))
-    ts = convert.from_numpy_tree(sim["state"], CPU)
-    tp = tprop.propagate(ts, sim["tparams"], *map(_t, imu))
+    ts = _state(sim["state"])
+    tp = tprop.propagate(ts, sim["tparams"], *map(_b, imu))
     ta = taug.augment(tp)
     for j, t in ((jp, tp), (ja, ta)):
-        got = convert.to_numpy_tree(t)
+        got = _first(t)
         for name in ("q", "p", "v", "q_null", "p_null", "v_null", "clone_q", "clone_p"):
             np.testing.assert_allclose(got[name], np.asarray(getattr(j, name)), atol=2e-5,
                                        err_msg=name)
         P = np.asarray(j.P)
         np.testing.assert_allclose(got["P"], P, atol=1e-5 * np.abs(P).max())
-    assert int(ta.n_clones) == int(ja.n_clones)
-    np.testing.assert_array_equal(ta.clone_valid.numpy(), np.asarray(ja.clone_valid))
+    assert int(ta.n_clones[0]) == int(ja.n_clones)
+    np.testing.assert_array_equal(ta.clone_valid[0].numpy(), np.asarray(ja.clone_valid))
 
 
 @pytest.fixture(scope="module")
@@ -202,13 +218,13 @@ def _check_triangulation(sim, lost):
     st = sim["state"]
     obs, ov, okj = lost["obs"], lost["ov"], lost["ok"]
     assert okj.sum() >= 4
-    pt, okt = ttri.triangulate_all(_t(obs), _t(ov), _t(st.clone_q), _t(st.clone_p),
+    pt, okt = ttri.triangulate_all(_b(obs), _b(ov), _b(st.clone_q), _b(st.clone_p),
                                    sim["tparams"].R_cam0_cam1, sim["tparams"].t_cam0_cam1,
                                    TCFG.triangulation)
-    np.testing.assert_array_equal(okt.numpy(), okj)
-    np.testing.assert_allclose(pt.numpy()[okj], lost["pos"][okj], rtol=1e-4, atol=1e-4)
-    motion = ttri.check_motion_all(_t(obs), _t(ov), _t(st.clone_q), _t(st.clone_p), 0.05)
-    np.testing.assert_array_equal(motion.numpy(), lost["motion"])
+    np.testing.assert_array_equal(okt[0].numpy(), okj)
+    np.testing.assert_allclose(pt[0].numpy()[okj], lost["pos"][okj], rtol=1e-4, atol=1e-4)
+    motion = ttri.check_motion_all(_b(obs), _b(ov), _b(st.clone_q), _b(st.clone_p), 0.05)
+    np.testing.assert_array_equal(motion[0].numpy(), lost["motion"])
 
 
 def _check_eigh3_jacobi_tie_kept():
@@ -230,26 +246,26 @@ def _check_feature_gamma(sim, lost):
     # a difference of quadratic forms, compared relative to its size.
     H, rp, U, gj = lost["sys"]
     s = sim["params"].observation_noise
-    gt = tupd.feature_gamma(_t(H), _t(rp), _t(U), _t(sim["state"].P), s).numpy()
+    gt = tupd.feature_gamma(_b(H), _b(rp), _b(U), _b(sim["state"].P), s)[0].numpy()
     use = lost["ov"].sum(axis=1) >= 3
     assert use.sum() >= 4
     np.testing.assert_allclose(gt[use], gj[use], rtol=2e-3, atol=1e-3)
     # The port's own system builder agrees with the JAX one.
     Ht, _, _, rpt, _ = tupd.feature_system(
-        _t(lost["pos"]), _t(lost["obs"]), _t(lost["ov"]), _t(lost["slots"]).long(),
-        convert.from_numpy_tree(sim["state"], CPU), sim["tparams"])
-    np.testing.assert_allclose(Ht.numpy(), H, atol=1e-4 * np.abs(H).max())
-    np.testing.assert_allclose(rpt.numpy(), rp, atol=1e-5)
+        _b(lost["pos"]), _b(lost["obs"]), _b(lost["ov"]), _b(lost["slots"]).long(),
+        _state(sim["state"]), sim["tparams"])
+    np.testing.assert_allclose(Ht[0].numpy(), H, atol=1e-4 * np.abs(H).max())
+    np.testing.assert_allclose(rpt[0].numpy(), rp, atol=1e-5)
 
 
 def _check_stack_update_row_order(sim, lost):
     # Same gate decisions and the same rows in the same order; values to
     # f32 roundoff of the projection.
     Hj, rj, ij = lost["stack"]
-    Ht, rt, it = tupd.stack_update(
-        convert.from_numpy_tree(sim["state"], CPU), sim["tparams"], _t(lost["pos"]),
-        _t(lost["obs"]), _t(lost["ov"]), _t(lost["slots"]).long(), _t(lost["process"]),
-        _t(lost["dofs"]).long())
+    Ht, rt, it = (x[0] for x in tupd.stack_update(
+        _state(sim["state"]), sim["tparams"], _b(lost["pos"]),
+        _b(lost["obs"]), _b(lost["ov"]), _b(lost["slots"]).long(), _b(lost["process"]),
+        _b(lost["dofs"]).long()))
     np.testing.assert_array_equal(it.numpy(), ij)
     assert ij.sum() >= 2
     assert Ht.shape == Hj.shape
@@ -313,11 +329,10 @@ def _check_online_reset_matches_jax(sim, fault):
     js, jf, jt = jax.jit(lambda s, f: j_online_reset(s, f, sim["params"]))(
         jax.tree_util.tree_map(jnp.asarray, st),
         jax.tree_util.tree_map(jnp.asarray, sim["fmap"]))
-    ts, tf, tt = t_online_reset(convert.from_numpy_tree(st, CPU),
-                                convert.from_numpy_tree(sim["fmap"], CPU), sim["tparams"])
-    assert bool(tt) and bool(jt)
+    ts, tf, tt = t_online_reset(_state(st), _state(sim["fmap"]), sim["tparams"])
+    assert bool(tt[0]) and bool(jt)
     for j, t in ((js, ts), (jf, tf)):
-        for name, a in convert.to_numpy_tree(t).items():
+        for name, a in _first(t).items():
             np.testing.assert_array_equal(a, np.asarray(getattr(j, name)), err_msg=name)
 
 

@@ -2,7 +2,10 @@
 
 The bench workload of bench.py (euroc_config(): 752x480 stereo, 4 pyramid
 levels, 4x5 grid with 5 features a cell, 20 clones, 128 lost candidates),
-its first 45 frames rendered by the JAX renderer, go through both engines.
+its first 45 frames rendered by the JAX renderer, go through both engines;
+once in the ideal world and once in the hostile world of bench.py --suite
+(HOSTILE_AUGS: occluders, vignette, flicker, noise), each rendered by the
+JAX renderer and by the port's.
 45 frames run past the first clone prunes (frames ~20 on). Marked slow:
 it takes minutes, so tier-1 (-m 'not slow') leaves it out. Run it with
 
@@ -19,10 +22,12 @@ import pytest
 import torch
 
 from vio_msckf_tpu.config import euroc_config as j_euroc_config
+from vio_msckf_tpu.data.render import HOSTILE_AUGS as J_HOSTILE
 from vio_msckf_tpu.data.render import render_sequence as jrender
 from vio_msckf_tpu.data.simulator import SimConfig, bundle_frames, simulate_sequence
 from vio_msckf_tpu.engine import VIOEngine as JEngine
 from vio_msckf_torch.config import euroc_config as t_euroc_config
+from vio_msckf_torch.data.render import HOSTILE_AUGS as T_HOSTILE
 from vio_msckf_torch.data.render import render_sequence as trender
 from vio_msckf_torch.engine import VIOEngine as TEngine
 from vio_msckf_torch.ops.fast import fast_score_map
@@ -32,7 +37,9 @@ IMU_KEYS = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")
 
 
 @pytest.mark.slow
-def test_engine_matches_jax_at_full_width():
+@pytest.mark.parametrize("world", ["ideal", "hostile"])
+def test_engine_matches_jax_at_full_width(world):
+    augs = dict(ideal=(None, None), hostile=(J_HOSTILE, T_HOSTILE))[world]
     cfg = j_euroc_config()
     sim = SimConfig(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5), yaw_rate=0.2,
                     wobble_amp=0.1)
@@ -41,16 +48,17 @@ def test_engine_matches_jax_at_full_width():
     n = N_FRAMES
     R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
     p = seq["gt_p"][first:first + n]
-    j0, j1 = (np.array(x) for x in jrender(cfg, R, p, radius=14.0, seed=7, chunk=15))
+    j0, j1 = (np.array(x) for x in jrender(cfg, R, p, radius=14.0, seed=7, chunk=15,
+                                           augs=augs[0]))
     imu = {k: frames[k][:n] for k in IMU_KEYS}
 
     # For the record: the port's renderer against the JAX renderer's frames.
     t0, t1 = trender(t_euroc_config(), R, p, radius=14.0, seed=7, chunk=5,
-                     device="cpu")
+                     device="cpu", augs=augs[1])
     render_diff = max(float(np.abs(t0.numpy() - j0).max()),
                       float(np.abs(t1.numpy() - j1).max()))
     corners = [fast_score_map(torch.as_tensor(x), 15.0) > 0 for x in (t0[0], j0[0])]
-    print(f"\nrenderers at full width: max |port - jax| {render_diff:.3g} DN over "
+    print(f"\n{world} world: renderers at full width: max |port - jax| {render_diff:.3g} DN over "
           f"{n} stereo frames; frame 0 FAST corners (threshold 15): "
           f"{int(corners[1].sum())} from the JAX frame, "
           f"{int((corners[0] != corners[1]).sum())} differ on the port's frame")

@@ -6,6 +6,9 @@ The JAX side runs as its own tests run it here: FAST through XLA and the
 Pallas interpreter, LK through the XLA backend, the SPD solve through the
 Pallas interpreter (spd_solve interprets off-TPU).
 
+The port's ops take a leading batch axis B (one image or point set per
+sequence); these checks call them at B = 1.
+
 The checks form one test item on purpose: under `pytest -n N --dist
 loadfile`, pytest-xdist hands out files in order of their item count,
 most first, so a one-item file is handed out after the long end-to-end
@@ -71,7 +74,8 @@ def _check_fast_twin_bit_exact_vs_xla_and_pallas():
     np.testing.assert_array_equal(
         got, np.asarray(fast_score_map_pallas(jnp.asarray(img), 15.0, True)))
     # On a CPU tensor the wrapper is the twin.
-    np.testing.assert_array_equal(tfast.fast_nms(torch.from_numpy(img), 15.0).numpy(), got)
+    np.testing.assert_array_equal(tfast.fast_nms(torch.from_numpy(img)[None], 15.0)[0].numpy(),
+                                  got)
 
 
 def _check_fast_compass_rule():
@@ -96,9 +100,10 @@ def _check_detect_grid_features_ties():
     score = rng.integers(0, 4, (H, W)).astype(np.float32) * 10.0
     mask = rng.uniform(size=(H, W)) > 0.2
     want = jfast.detect_grid_features(jnp.asarray(score), jnp.asarray(mask), 2, 3, 5)
-    got = tfast.detect_grid_features(torch.from_numpy(score), torch.from_numpy(mask), 2, 3, 5)
+    got = tfast.detect_grid_features(torch.from_numpy(score)[None],
+                                     torch.from_numpy(mask)[None], 2, 3, 5)
     for w, g in zip(want, got):
-        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+        np.testing.assert_array_equal(np.asarray(w), g[0].numpy())
 
 
 def _check_pyramid_parity():
@@ -106,7 +111,7 @@ def _check_pyramid_parity():
     # them (FMA), so f32 roundoff of values up to 255: 1e-4.
     img = _blocky(np.random.default_rng(2))
     want = jax.jit(jpyr.build_pyramid, static_argnums=1)(jnp.asarray(img), 3)
-    got = tpyr.build_pyramid(torch.from_numpy(img), 3)
+    got = [g[0] for g in tpyr.build_pyramid(torch.from_numpy(img)[None], 3)]
     assert [g.shape for g in got] == [w.shape for w in want]
     for w, g in zip(want, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
@@ -138,9 +143,10 @@ def _check_lk_twin_matches_xla(lk_pair):
     pj0, pj1 = jpyr.build_pyramid(jnp.asarray(img0), 2), jpyr.build_pyramid(jnp.asarray(img1), 2)
     g, s, e = map(np.asarray, jklt.pyramidal_lk(
         pj0, pj1, jnp.asarray(pts), jnp.asarray(pts), 15, 30, 0.01, 1e-4, "xla"))
-    pt0 = tpyr.build_pyramid(torch.from_numpy(img0), 2)
-    pt1 = tpyr.build_pyramid(torch.from_numpy(img1), 2)
-    g2, s2, e2 = tklt.pyramidal_lk(pt0, pt1, torch.from_numpy(pts), torch.from_numpy(pts))
+    pt0 = tpyr.build_pyramid(torch.from_numpy(img0)[None], 2)
+    pt1 = tpyr.build_pyramid(torch.from_numpy(img1)[None], 2)
+    g2, s2, e2 = (x[0] for x in tklt.pyramidal_lk(
+        pt0, pt1, torch.from_numpy(pts)[None], torch.from_numpy(pts)[None]))
     assert s.sum() > 30
     assert (s == s2.numpy()).mean() >= 0.99
     both = s & s2.numpy()
@@ -159,11 +165,11 @@ def _check_lk_verify_twin_matches_xla(lk_pair):
     (pa, sa, _), (pb, sb, _) = jklt.lk_verify(
         fj[0], fj[1], fj[1], fj[0], jnp.asarray(fwd), jnp.asarray(pts),
         jnp.asarray(pts[:20]), jnp.asarray(fwd[:20]), 15, 30, 0.01, 1e-4, "xla")
-    pt0 = tpyr.build_pyramid(torch.from_numpy(img0), 2)
-    pt1 = tpyr.build_pyramid(torch.from_numpy(img1), 2)
-    (qa, ta, _), (qb, tb, _) = tklt.lk_verify(
-        pt1, pt0, pt0, pt1, torch.from_numpy(fwd), torch.from_numpy(pts),
-        torch.from_numpy(pts[:20]), torch.from_numpy(fwd[:20]))
+    pt0 = tpyr.build_pyramid(torch.from_numpy(img0)[None], 2)
+    pt1 = tpyr.build_pyramid(torch.from_numpy(img1)[None], 2)
+    (qa, ta, _), (qb, tb, _) = ((x[0] for x in pair) for pair in tklt.lk_verify(
+        pt1, pt0, pt0, pt1, torch.from_numpy(fwd)[None], torch.from_numpy(pts)[None],
+        torch.from_numpy(pts[:20])[None], torch.from_numpy(fwd[:20])[None]))
     for want_p, want_s, got_p, got_s in ((pa, sa, qa, ta), (pb, sb, qb, tb)):
         want_s = np.asarray(want_s)
         assert (want_s == got_s.numpy()).mean() >= 0.99

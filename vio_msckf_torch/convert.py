@@ -7,6 +7,12 @@ the engine carry, and builds the port's dataclasses. `to_numpy_tree` is the
 inverse, returning dicts of numpy arrays (the tests compare those). The
 JAX tracker keeps its pyramid in a lane-row layout (an edge-padded
 (Hp * nb, 128) array per level); it is cut back to the (H, W) level here.
+
+Leaves keep their leading axes: a one-sequence JAX state gives the port's
+one-sequence record (what `VIOEngine.step` takes), a carry stacked by
+`jax.vmap` (every leaf with a leading B, the lane-row pyramid
+(B, Hp * nb, 128)) gives the batched record that `VIOEngine.step_batch`
+and the modules under filter/ and frontend/ take.
 Nothing in this module imports jax.
 """
 
@@ -31,15 +37,17 @@ def _tensor(a, name, device):
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
-def _plain_pyramid(pyr, level_shapes, device):
-    """Lane-row levels (or plain (H, W) levels) -> list of (H, W) tensors."""
+def _plain_pyramid(pyr, level_shapes, device, batched):
+    """Lane-row levels (or plain (H, W) levels), with a leading B when
+    `batched` -> list of (H, W) or (B, H, W) tensors."""
     flats = getattr(pyr, "flats", pyr)
     out = []
     for flat, (H, W) in zip(flats, level_shapes):
         flat = np.asarray(flat, np.float32)
-        if flat.shape != (H, W):
+        lead = flat.shape[:1] if batched else ()
+        if flat.shape != lead + (H, W):
             Hp = H + 2 * _PAD
-            flat = flat.reshape(Hp, -1)[_PAD:_PAD + H, _PAD:_PAD + W]
+            flat = flat.reshape(lead + (Hp, -1))[..., _PAD:_PAD + H, _PAD:_PAD + W]
         out.append(torch.as_tensor(np.ascontiguousarray(flat), device=device))
     return out
 
@@ -66,7 +74,8 @@ def from_numpy_tree(tree, device="cuda", level_shapes=None):
                 if meta is None:
                     raise ValueError("level_shapes is required for this pyramid")
                 level_shapes = [(H, W) for H, W, _ in meta]
-            kw[f.name] = _plain_pyramid(tree.pyr_prev, level_shapes, device)
+            batched = np.ndim(tree.ids) == 2
+            kw[f.name] = _plain_pyramid(tree.pyr_prev, level_shapes, device, batched)
         else:
             kw[f.name] = _tensor(getattr(tree, f.name), f.name, device)
     return cls(**kw)

@@ -31,8 +31,10 @@
 //     16-byte load a thread and step where the row pitch allows it, and
 //     writes its outputs the same way. Out-of-image pixels read 0, the
 //     Pallas canvas's zero padding.
-//   - Grid. 12 x 30 = 360 blocks of 256 threads for 480x752: one wave of
-//     at most 3 blocks an SM on 132 SMs.
+//   - Grid. 12 x 30 = 360 blocks of 256 threads for one 480x752 image:
+//     one wave of at most 3 blocks an SM on 132 SMs. A stack of B images
+//     (one per sequence) is the grid's third dimension: block (x, y, b)
+//     reads and writes plane b, at img + b*H*W.
 // Bit-exact against the twin: only subtractions (neighbour - centre, in
 // that order), negation, min and max are involved, NMS keeps ">=", and
 // the border mask zeroes every pixel whose circle or NMS window leaves the
@@ -90,12 +92,15 @@ __device__ __forceinline__ bool pair_above(float n, float e, float s, float w, f
     return (n > t && e > t) || (e > t && s > t) || (s > t && w > t) || (w > t && n > t);
 }
 
-// VEC: every row starts on a 16-byte boundary (W % 4 == 0, aligned
-// pointers), so the staging and the output use float4.
+// VEC: every row of every plane starts on a 16-byte boundary (W % 4 == 0,
+// aligned pointers), so the staging and the output use float4.
 template <bool VEC>
 __global__ void __launch_bounds__(NT) fast_nms_kernel(const float* __restrict__ img,
                                                       float* __restrict__ out,
                                                       int H, int W, float threshold) {
+    const size_t plane = (size_t)blockIdx.z * H * W;
+    img += plane;
+    out += plane;
     __shared__ __align__(16) float s_img[SH][SW];
     __shared__ float s_score[RN];
     __shared__ uint16_t s_list[RN];
@@ -243,10 +248,15 @@ __global__ void __launch_bounds__(NT) fast_nms_kernel(const float* __restrict__ 
 
 }  // namespace
 
-extern "C" int vio_fast_nms(const float* img, float* out, int H, int W,
+// img, out: (B, H, W) f32, contiguous.
+extern "C" int vio_fast_nms(const float* img, float* out, int B, int H, int W,
                             float threshold, void* stream) {
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-    const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
+    if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+    // Plane b starts at b*H*W floats: aligned for every b iff plane 0 is
+    // and H*W is a multiple of 4 (always so when W is).
+    const bool vec = W % 4 == 0 && ((size_t)H * W) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
     cudaStream_t s = (cudaStream_t)stream;
     if (vec)

@@ -15,6 +15,9 @@
 // launches between levels:
 //   - one warp per feature and one feature per CTA, so P = 128..356
 //     features spread over as many of the 132 SMs as there are features;
+//   - B sequences share the launch: the level images are (B, H_l, W_l)
+//     stacks, feature p belongs to sequence p / P_seq and reads its plane
+//     at + (p / P_seq) * H_l * W_l, so a batch only adds CTAs;
 //   - levels L..0 run inside the kernel, the guess carried in registers,
 //     doubled between levels, each feature with its own early exit;
 //   - at each level the feature's moving window (48x48, fixed for the
@@ -52,8 +55,10 @@ constexpr int MAX_LEVELS = 8;
 
 }  // namespace
 
-// Level images of one call, passed by value. Pair 0 tracks features
-// [0, n_first), pair 1 the rest (lk_verify's two image pairs).
+// Level images of one call, passed by value: each pointer is a (B, H, W)
+// stack, plane b for sequence b. Within each sequence's block of P_seq
+// features, pair 0 tracks features [0, n_first), pair 1 the rest
+// (lk_verify's two image pairs).
 struct LKPyramid {
     const float* prev[2][MAX_LEVELS];
     const float* next[2][MAX_LEVELS];
@@ -149,8 +154,8 @@ __global__ void __launch_bounds__(32) lk_pyramid_kernel(
     const LKPyramid pyr, const float* __restrict__ pts_prev,
     const float* __restrict__ pts_init, float* __restrict__ pts_out,
     uint8_t* __restrict__ status_out, float* __restrict__ err_out,
-    int32_t* __restrict__ iters_out, int P, int n_first, int win, int iters,
-    float eps2, float min_eig_threshold) {
+    int32_t* __restrict__ iters_out, int P, int P_seq, int n_first, int win,
+    int iters, float eps2, float min_eig_threshold) {
     __shared__ float s_win[TW * TW];
     __shared__ float s_patch[MAX_PATCH * MAX_PATCH];
     __shared__ float s_tpl[MAX_GWIN * MAX_GWIN];
@@ -158,7 +163,8 @@ __global__ void __launch_bounds__(32) lk_pyramid_kernel(
     const int p = blockIdx.x;
     const int lane = threadIdx.x;
     if (p >= P) return;
-    const int pair = p >= n_first ? 1 : 0;
+    const int seq = p / P_seq;
+    const int pair = p - seq * P_seq >= n_first ? 1 : 0;
 
     const int r = win / 2;
     const int gwin = win + 2;
@@ -197,8 +203,9 @@ __global__ void __launch_bounds__(32) lk_pyramid_kernel(
             const int H = pyr.H[lvl], W = pyr.W[lvl];
             const int Hp = H + 2 * PAD;
             const int nb = max(2, (W + 2 * PAD + 127) / 128);
-            const float* prev = pyr.prev[pair][lvl];
-            const float* next = pyr.next[pair][lvl];
+            const size_t plane = (size_t)seq * H * W;
+            const float* prev = pyr.prev[pair][lvl] + plane;
+            const float* next = pyr.next[pair][lvl] + plane;
             float lscale = 1.0f;
             for (int l = 0; l < lvl; ++l) lscale *= 0.5f;
 
@@ -349,17 +356,19 @@ __global__ void __launch_bounds__(32) lk_pyramid_kernel(
 
 // pts_prev, pts_init, pts_out (P, 2) f32; status_out (P,) bool; err_out
 // (P,) f32; iters_out (P,) int32 (Newton iterations summed over levels).
+// P = B * P_seq features, sequence-major.
 extern "C" int vio_lk_pyramid(const LKPyramid* pyr, const float* pts_prev,
                               const float* pts_init, float* pts_out,
                               uint8_t* status_out, float* err_out,
-                              int32_t* iters_out, int P, int n_first, int win,
-                              int iters, float eps2, float min_eig_threshold,
-                              void* stream) {
-    if (win % 2 != 1 || win > MAX_WIN || pyr->levels < 1 || pyr->levels > MAX_LEVELS)
+                              int32_t* iters_out, int P, int P_seq, int n_first,
+                              int win, int iters, float eps2,
+                              float min_eig_threshold, void* stream) {
+    if (win % 2 != 1 || win > MAX_WIN || pyr->levels < 1 || pyr->levels > MAX_LEVELS ||
+        P_seq < 1 || P % P_seq != 0)
         return (int)cudaErrorInvalidValue;
     lk_pyramid_kernel<<<P, 32, 0, (cudaStream_t)stream>>>(
         *pyr, pts_prev, pts_init, pts_out, status_out, err_out, iters_out, P,
-        n_first, win, iters, eps2, min_eig_threshold);
+        P_seq, n_first, win, iters, eps2, min_eig_threshold);
     return (int)cudaGetLastError();
 }
 

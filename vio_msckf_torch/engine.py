@@ -1,9 +1,15 @@
 """The full VIO engine: stereo front-end + MSCKF back-end, one frame per
 `step`. Port of vio_msckf_tpu/engine.py.
 
+The front-end and the filter take a leading batch axis B: `step_batch`
+advances B independent sequences by one frame in the same kernel launches
+as one sequence (the JAX package gets the same from `jax.vmap`, see
+bench.py:run_batched). `step` and `run_sequence` are the one-sequence API:
+they add a B = 1 axis to the carry and the frame and take it off again.
+
 A step issues no host synchronisation: every data-dependent loop and
-branch of the reference is a fixed-cap masked loop, a select, or runs
-inside a kernel, so the host can queue frames ahead of the device.
+branch of the reference is a fixed-cap masked loop, a per-sequence select,
+or runs inside a kernel, so the host can queue frames ahead of the device.
 """
 
 import torch
@@ -11,6 +17,17 @@ import torch
 from vio_msckf_torch.config import VIOConfig
 from vio_msckf_torch.filter.msckf import MSCKF, stack_outputs
 from vio_msckf_torch.frontend.tracker import StereoTracker
+from vio_msckf_torch.tensors import index_record, unsqueeze_record
+
+
+def _one(carry):
+    """A one-sequence carry -> a batched carry of B = 1 (views)."""
+    return tuple(unsqueeze_record(c) for c in carry)
+
+
+def _first(carry):
+    """Sequence 0 of a batched carry (views)."""
+    return tuple(index_record(c, 0) for c in carry)
 
 
 class VIOEngine:
@@ -20,22 +37,21 @@ class VIOEngine:
         self.tracker = StereoTracker(config, self.device)
         self.kf = MSCKF(config, self.device, dtype)
 
-    def init(self, q0=None, bg0=None, gravity=None):
-        """Fresh (tracker, filter, feature-map) carry."""
-        state, fmap = self.kf.init(q0, bg0, gravity)
-        return (self.tracker.init(), state, fmap)
+    # -- B sequences ---------------------------------------------------------
 
-    def reset(self, carry):
-        """Full system reset: fresh tracker state and a fresh filter that
-        keeps the current extrinsics estimate."""
-        _, state, fmap = carry
-        state, fmap = self.kf.reset(state, fmap)
-        return (self.tracker.init(), state, fmap)
+    def init_batch(self, inits):
+        """Fresh batched (tracker, filter, feature-map) carry for len(inits)
+        sequences; each entry is a dict whose q0 / bg0 / gravity (each
+        optional) come from the static gravity-and-bias initialization (the
+        `init` dict of data.bundling.bundle_frames)."""
+        state, fmap = self.kf.init_batch(inits)
+        return (self.tracker.init(len(inits)), state, fmap)
 
-    def step(self, carry, frame):
-        """One stereo frame end to end. frame keys: cam0_img (H,W),
-        cam1_img (H,W), imu_gyro (M,3), imu_acc (M,3), imu_dt (M,),
-        imu_valid (M,)."""
+    def step_batch(self, carry, frame):
+        """One stereo frame of every sequence. frame keys: cam0_img
+        (B,H,W), cam1_img (B,H,W), imu_gyro (B,M,3), imu_acc (B,M,3), imu_dt
+        (B,M), imu_valid (B,M). Returns (carry, FilterOutput with leading
+        B)."""
         ts, state, fmap = carry
         ts, msg = self.tracker.step(ts, frame["cam0_img"], frame["cam1_img"],
                                     frame["imu_gyro"], frame["imu_dt"],
@@ -47,12 +63,38 @@ class VIOEngine:
         (state, fmap), out = self.kf.step((state, fmap), kf_frame)
         return (ts, state, fmap), out
 
+    def run_batch(self, carry, frames):
+        """Step B sequences over frames stacked (B, T, ...), as bench.py
+        stacks them; returns (carry, outputs (B, T, ...))."""
+        n = frames["cam0_img"].shape[1]
+        outs = []
+        for k in range(n):
+            carry, out = self.step_batch(carry, {key: v[:, k] for key, v in frames.items()})
+            outs.append(out)
+        return carry, stack_outputs(outs)
+
+    # -- one sequence ----------------------------------------------------------
+
+    def init(self, q0=None, bg0=None, gravity=None):
+        """Fresh one-sequence (tracker, filter, feature-map) carry."""
+        return _first(self.init_batch([dict(q0=q0, bg0=bg0, gravity=gravity)]))
+
+    def reset(self, carry):
+        """Full system reset: fresh tracker state and a fresh filter that
+        keeps the current extrinsics estimate."""
+        _, state, fmap = _one(carry)
+        state, fmap = self.kf.reset(state, fmap)
+        return _first((self.tracker.init(1), state, fmap))
+
+    def step(self, carry, frame):
+        """One stereo frame end to end. frame keys: cam0_img (H,W),
+        cam1_img (H,W), imu_gyro (M,3), imu_acc (M,3), imu_dt (M,),
+        imu_valid (M,)."""
+        carry, out = self.step_batch(_one(carry), {k: v[None] for k, v in frame.items()})
+        return _first(carry), index_record(out, 0)
+
     def run_sequence(self, carry, frames):
         """Step over frames stacked on axis 0; returns (carry, outputs
         stacked on axis 0)."""
-        n = frames["cam0_img"].shape[0]
-        outs = []
-        for k in range(n):
-            carry, out = self.step(carry, {key: v[k] for key, v in frames.items()})
-            outs.append(out)
-        return carry, stack_outputs(outs)
+        carry, outs = self.run_batch(_one(carry), {k: v[None] for k, v in frames.items()})
+        return _first(carry), index_record(outs, 0)

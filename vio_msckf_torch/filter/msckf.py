@@ -4,7 +4,11 @@ Port of vio_msckf_tpu/filter/msckf.py. Per frame:
   propagate -> augment -> add observations -> remove lost features
   -> prune clone window -> publish -> online reset.
 Branches of the reference (`lax.cond` for prune and reset) are computed
-and selected, so a step issues no host synchronisation.
+and selected per sequence, so a step makes no host synchronisation.
+
+State and frames carry a leading batch axis B: B independent sequences
+advance in the same launches, each with its own decisions, as under the
+JAX package's `jax.vmap(step)`.
 """
 
 from dataclasses import dataclass
@@ -27,12 +31,13 @@ from vio_msckf_torch.filter.features import add_observations, clear_features
 from vio_msckf_torch.filter.update import stack_update, tsqr_reduce_update
 from vio_msckf_torch.filter.triangulation import triangulate_all, check_motion_all
 from vio_msckf_torch.filter.pruning import compact_lanes, maybe_prune
-from vio_msckf_torch.tensors import TensorRecord, select
+from vio_msckf_torch.tensors import TensorRecord, gather_rows, select
 
 
 @dataclass
 class FilterOutput(TensorRecord):
-    """Per-frame odometry output."""
+    """Per-frame odometry output, per sequence (shapes without the batch
+    axis)."""
 
     q: torch.Tensor             # (4,) world->IMU attitude (JPL)
     p: torch.Tensor             # (3,) IMU position in world
@@ -78,28 +83,28 @@ def _from_two_vectors_np(v0, v1):
 
 def remove_lost_features(state, fmap, params):
     """Triangulate and update with the features that lost track this
-    frame, then drop them from the map. Candidates are compacted into
-    C = max_lost_candidates lanes; overflow beyond C loses its update
-    information (it is still cleared) and is counted."""
+    frame, then drop them from the map. Each sequence's candidates are
+    compacted into C = max_lost_candidates lanes; overflow beyond C loses
+    its update information (it is still cleared) and is counted (B,)."""
     cfg = params.config
-    F = fmap.valid.shape[0]
-    N = state.clone_q.shape[0]
+    B, F = fmap.valid.shape
+    N = state.clone_q.shape[1]
     dev = state.P.device
     cur_slot = state.n_clones - 1
-    observed_now = (fmap.obs_valid.index_select(1, torch.clamp(cur_slot, min=0).reshape(1))[:, 0]
-                    & (cur_slot >= 0))
+    col = torch.clamp(cur_slot, min=0)[:, None, None].expand(B, F, 1)
+    observed_now = torch.gather(fmap.obs_valid, 2, col)[..., 0] & (cur_slot >= 0)[:, None]
     lost = fmap.valid & ~observed_now
-    n_obs_full = torch.sum(fmap.obs_valid, dim=1)
+    n_obs_full = torch.sum(fmap.obs_valid, dim=2)
     candidates = lost & ~(n_obs_full < 3)
 
     C = min(cfg.filter.max_lost_candidates, F)
-    overflow = torch.clamp(torch.sum(candidates) - C, min=0)
+    overflow = torch.clamp(torch.sum(candidates, dim=1) - C, min=0)
     idx, sel_valid = compact_lanes(candidates, C)
-    obs_c = fmap.obs[idx]
-    ov_c = fmap.obs_valid[idx] & sel_valid[:, None]
-    init_c = fmap.initialized[idx] & sel_valid
-    pos_c = fmap.position[idx]
-    n_obs_c = torch.sum(ov_c, dim=1)
+    obs_c = gather_rows(fmap.obs, idx)
+    ov_c = gather_rows(fmap.obs_valid, idx) & sel_valid[..., None]
+    init_c = gather_rows(fmap.initialized, idx) & sel_valid
+    pos_c = gather_rows(fmap.position, idx)
+    n_obs_c = torch.sum(ov_c, dim=2)
 
     positions, tri_ok = triangulate_all(
         obs_c, ov_c, state.clone_q, state.clone_p,
@@ -109,9 +114,9 @@ def remove_lost_features(state, fmap, params):
     newly_ok = ~init_c & motion_ok & tri_ok
     process = sel_valid & (init_c | newly_ok)
     # Initialized features keep their stored estimate.
-    use_pos = torch.where(init_c[:, None], pos_c, positions)
+    use_pos = torch.where(init_c[..., None], pos_c, positions)
 
-    slots = torch.arange(N, device=dev)[None, :].expand(C, N)
+    slots = torch.arange(N, device=dev).expand(B, C, N)
     Hc, rc, _ = stack_update(
         state, params, positions=use_pos, obs=obs_c, use_masks=ov_c,
         clone_slots=slots, process_mask=process,
@@ -120,30 +125,36 @@ def remove_lost_features(state, fmap, params):
     return state, clear_features(fmap, lost), overflow
 
 
+def _all_finite(x):
+    """(B,) whether every entry of sequence b's x is finite."""
+    return torch.all(torch.isfinite(x).reshape(x.shape[0], -1), dim=1)
+
+
 def online_reset(state, fmap, params):
-    """Drop clones and map and reset the covariance when the position
-    sigma explodes, or when the state is no longer finite (a NaN never
-    recovers on its own); non-finite nominal values restart from identity
-    attitude, zero kinematics and the calibrated extrinsics."""
+    """Per sequence: drop clones and map and reset the covariance when the
+    position sigma explodes, or when the state is no longer finite (a NaN
+    never recovers on its own); non-finite nominal values restart from
+    identity attitude, zero kinematics and the calibrated extrinsics."""
     fc = params.config.filter
-    pos_var = torch.diagonal(state.P)[12:15]
-    trigger = torch.sqrt(torch.amax(pos_var)) >= fc.position_std_threshold
+    B = state.P.shape[0]
+    diag = torch.diagonal(state.P, dim1=-2, dim2=-1)
+    pos_var = diag[:, 12:15]
+    trigger = torch.sqrt(torch.amax(pos_var, dim=1)) >= fc.position_std_threshold
     if not fc.position_std_threshold > 0:
         trigger = torch.zeros_like(trigger)
-    finite = (torch.all(torch.isfinite(torch.diagonal(state.P)))
-              & torch.all(torch.isfinite(state.p))
-              & torch.all(torch.isfinite(state.v))
-              & torch.all(torch.isfinite(state.q)))
+    finite = (_all_finite(diag) & _all_finite(state.p) & _all_finite(state.v)
+              & _all_finite(state.q))
     trigger = trigger | ~finite
 
     def scrub(x, default):
-        return torch.where(torch.all(torch.isfinite(x)), x, default)
+        ok = _all_finite(x).reshape((B,) + (1,) * (x.dim() - 1))
+        return torch.where(ok, x, default)
 
     zero3 = torch.zeros_like(state.p)
     s = state.replace(
         clone_valid=torch.zeros_like(state.clone_valid),
         n_clones=torch.zeros_like(state.n_clones),
-        P=reset_cov(params, velocity_cov=fc.online_reset_velocity_cov),
+        P=reset_cov(params, velocity_cov=fc.online_reset_velocity_cov).expand_as(state.P),
         q=scrub(state.q, torch.eye(4, dtype=state.q.dtype, device=state.q.device)[3]),
         p=scrub(state.p, zero3),
         v=scrub(state.v, zero3),
@@ -157,25 +168,27 @@ def online_reset(state, fmap, params):
 
 
 def publish(state):
-    """Odometry output (T_imu_body = I)."""
+    """Odometry output per sequence (T_imu_body = I)."""
     R_w_i = quat_to_rot(state.q)
-    pos_var = torch.diagonal(state.P)[12:15]
+    pos_var = torch.diagonal(state.P, dim1=-2, dim2=-1)[:, 12:15]
+    B, dev = state.p.shape[0], state.p.device
     return FilterOutput(
         q=state.q, p=state.p, v=state.v,
         cam0_R_w_c=state.R_imu_cam0 @ R_w_i,
-        cam0_p=state.p + R_w_i.T @ state.t_cam0_imu,
+        cam0_p=state.p + (R_w_i.mT @ state.t_cam0_imu[..., None])[..., 0],
         position_std=torch.sqrt(torch.clamp(pos_var, min=0.0)),
-        did_reset=torch.zeros((), dtype=torch.bool, device=state.p.device),
-        lost_overflow=torch.zeros((), dtype=torch.int64, device=state.p.device),
+        did_reset=torch.zeros(B, dtype=torch.bool, device=dev),
+        lost_overflow=torch.zeros(B, dtype=torch.int64, device=dev),
     )
 
 
 class MSCKF:
-    """Config-derived constants plus the filter's functions.
+    """Config-derived constants plus the filter's functions, over a batch
+    of B sequences.
 
         kf = MSCKF(config, device)
-        state, fmap = kf.init(q0, bg0, gravity)
-        (state, fmap), out = kf.step((state, fmap), frame)
+        state, fmap = kf.init_batch([dict(q0=..., bg0=..., gravity=...), ...])
+        (state, fmap), out = kf.step((state, fmap), frame)   # frame (B, ...)
     """
 
     def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32):
@@ -185,21 +198,25 @@ class MSCKF:
         self.dtype = dtype
         self.params = make_params(config, self.device, dtype)
 
-    def init(self, q0=None, bg0=None, gravity=None):
-        state = init_filter_state(self.config, self.params, q0, bg0, gravity)
-        return state, init_feature_map(self.config, self.device, self.dtype)
+    def init_batch(self, inits):
+        """Fresh state for len(inits) sequences; each entry is a dict whose
+        q0 / bg0 / gravity (each optional) come from the static
+        gravity-and-bias initialization."""
+        state = init_filter_state(self.config, self.params, inits)
+        return state, init_feature_map(self.config, len(inits), self.device, self.dtype)
 
     def reset(self, state, fmap):
         """Full reset to the initial status, keeping the current extrinsics
         and gravity."""
-        new_state, new_fmap = self.init()
+        new_state, new_fmap = self.init_batch([{}] * state.P.shape[0])
         return new_state.replace(
             R_imu_cam0=state.R_imu_cam0, t_cam0_imu=state.t_cam0_imu,
             gravity=state.gravity), new_fmap
 
     def step(self, carry, frame):
-        """One frame. `frame` holds imu_gyro (M,3), imu_acc (M,3), imu_dt
-        (M,), imu_valid (M,), feat_ids (K,), feat_obs (K,4), feat_valid (K,)."""
+        """One frame of every sequence. `frame` holds imu_gyro (B,M,3),
+        imu_acc (B,M,3), imu_dt (B,M), imu_valid (B,M), feat_ids (B,K),
+        feat_obs (B,K,4), feat_valid (B,K)."""
         state, fmap = carry
         params = self.params
         state = propagate(state, params, frame["imu_gyro"], frame["imu_acc"],
@@ -217,19 +234,20 @@ class MSCKF:
         return (state, fmap), out
 
     def run_sequence(self, carry, frames):
-        """Step over frames stacked on axis 0; returns (carry, outputs
-        stacked on axis 0)."""
-        n = next(iter(frames.values())).shape[0]
+        """Step over frames stacked on axis 1 (B, T, ...); returns (carry,
+        outputs (B, T, ...))."""
+        n = next(iter(frames.values())).shape[1]
         outs = []
         for k in range(n):
-            carry, out = self.step(carry, {key: v[k] for key, v in frames.items()})
+            carry, out = self.step(carry, {key: v[:, k] for key, v in frames.items()})
             outs.append(out)
         return carry, stack_outputs(outs)
 
 
 def stack_outputs(outs):
-    """A list of per-frame FilterOutputs -> one with a leading frame axis."""
+    """Per-frame batched FilterOutputs (B, ...) -> one with a frame axis
+    after the batch axis (B, T, ...)."""
     return FilterOutput(**{
-        name: torch.stack([getattr(o, name) for o in outs])
+        name: torch.stack([getattr(o, name) for o in outs], dim=1)
         for name in FilterOutput.__dataclass_fields__
     })

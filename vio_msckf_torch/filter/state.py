@@ -5,6 +5,10 @@ dimension ``D = 21 + 6 * N_MAX`` with an active-clone count; augmentation
 writes a block, pruning permutes, nothing reallocates. The feature map is a
 table of ``F_MAX`` slots whose observations are indexed by clone slot.
 
+Both records carry a leading batch axis B: B independent sequences, each
+with its own clone count, covariance and feature table (what `jax.vmap`
+gives the JAX package). The shapes below are per sequence.
+
 Error-state layout:
   [0:3]   dtheta (IMU attitude)      [3:6]   gyro bias
   [6:9]   velocity                   [9:12]  acc bias
@@ -134,49 +138,61 @@ def calib_extrinsics(config):
     return T_c0_i[:3, :3].T, T_c0_i[:3, 3]
 
 
-def init_filter_state(config: VIOConfig, params: MsckfParams, q0=None, bg0=None,
-                      gravity=None) -> FilterState:
-    """Fresh filter state. q0 / bg0 / gravity come from the static
-    gravity-and-bias initialization."""
+def init_filter_state(config: VIOConfig, params: MsckfParams, inits) -> FilterState:
+    """Fresh filter states, one per entry of `inits` (B dicts whose q0 /
+    bg0 / gravity, each optional, come from the static gravity-and-bias
+    initialization). Returns a FilterState with a leading axis B."""
     dev = params.init_cov_diag.device
     dtype = params.init_cov_diag.dtype
     N = config.filter.max_cam_state_size
+    B = len(inits)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev).clone()
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=dev)
+
+    def per_seq(key, default):
+        return t(np.stack([default if i.get(key) is None else np.asarray(i[key])
+                           for i in inits]))
+
+    def tile(a, *shape):
+        return t(np.broadcast_to(np.asarray(a, np.float64), (B,) + shape).copy())
 
     ident = [0.0, 0.0, 0.0, 1.0]
+    q0 = per_seq("q0", ident)
     return FilterState(
-        q=t(ident if q0 is None else q0),
-        p=t(np.zeros(3)),
-        v=t(np.zeros(3)),
-        bg=t(np.zeros(3) if bg0 is None else bg0),
-        ba=t(np.zeros(3)),
-        R_imu_cam0=params.calib_R_imu_cam0.clone(),
-        t_cam0_imu=params.calib_t_cam0_imu.clone(),
-        q_null=t(ident if q0 is None else q0),
-        p_null=t(np.zeros(3)),
-        v_null=t(np.zeros(3)),
-        gravity=t(config.gravity if gravity is None else gravity),
-        clone_q=t(np.tile(ident, (N, 1))),
-        clone_p=t(np.zeros((N, 3))),
-        clone_q_null=t(np.tile(ident, (N, 1))),
-        clone_p_null=t(np.zeros((N, 3))),
-        clone_valid=torch.zeros(N, dtype=torch.bool, device=dev),
-        n_clones=torch.zeros((), dtype=torch.int64, device=dev),
-        P=reset_cov(params),
-        tracking_rate=torch.ones((), dtype=dtype, device=dev),
+        q=q0,
+        p=tile(np.zeros(3), 3),
+        v=tile(np.zeros(3), 3),
+        bg=per_seq("bg0", np.zeros(3)),
+        ba=tile(np.zeros(3), 3),
+        R_imu_cam0=params.calib_R_imu_cam0.expand(B, 3, 3).clone(),
+        t_cam0_imu=params.calib_t_cam0_imu.expand(B, 3).clone(),
+        q_null=q0.clone(),
+        p_null=tile(np.zeros(3), 3),
+        v_null=tile(np.zeros(3), 3),
+        gravity=per_seq("gravity", np.asarray(config.gravity, np.float64)),
+        clone_q=tile(np.tile(ident, (N, 1)), N, 4),
+        clone_p=tile(np.zeros((N, 3)), N, 3),
+        clone_q_null=tile(np.tile(ident, (N, 1)), N, 4),
+        clone_p_null=tile(np.zeros((N, 3)), N, 3),
+        clone_valid=torch.zeros((B, N), dtype=torch.bool, device=dev),
+        n_clones=torch.zeros(B, dtype=torch.int64, device=dev),
+        P=reset_cov(params).expand(B, -1, -1).clone(),
+        tracking_rate=torch.ones(B, dtype=dtype, device=dev),
     )
 
 
-def init_feature_map(config: VIOConfig, device="cuda", dtype=torch.float32) -> FeatureMap:
+def init_feature_map(config: VIOConfig, batch=1, device="cuda",
+                     dtype=torch.float32) -> FeatureMap:
+    """Empty feature maps for `batch` sequences."""
     F = config.filter.max_features
     N = config.filter.max_cam_state_size
+    B = batch
     return FeatureMap(
-        fid=torch.full((F,), -1, dtype=torch.int64, device=device),
-        valid=torch.zeros(F, dtype=torch.bool, device=device),
-        obs=torch.zeros((F, N, 4), dtype=dtype, device=device),
-        obs_valid=torch.zeros((F, N), dtype=torch.bool, device=device),
-        position=torch.zeros((F, 3), dtype=dtype, device=device),
-        initialized=torch.zeros(F, dtype=torch.bool, device=device),
+        fid=torch.full((B, F), -1, dtype=torch.int64, device=device),
+        valid=torch.zeros((B, F), dtype=torch.bool, device=device),
+        obs=torch.zeros((B, F, N, 4), dtype=dtype, device=device),
+        obs_valid=torch.zeros((B, F, N), dtype=torch.bool, device=device),
+        position=torch.zeros((B, F, 3), dtype=dtype, device=device),
+        initialized=torch.zeros((B, F), dtype=torch.bool, device=device),
     )

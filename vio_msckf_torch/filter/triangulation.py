@@ -10,13 +10,15 @@ The reference's per-feature `lax.while_loop`s (outer: iteration cap and
 step-size precision; inner: cap and "cost reduced") become fixed-cap loops
 with per-feature masks: a feature whose own loop has stopped keeps every
 value unchanged, so the result equals the reference's early exit, with no
-host synchronisation.
+host synchronisation. The B sequences of a batch and their C feature rows
+run as B * C lanes of one loop, each lane with its own stopping rule.
 """
 
 import torch
 
 from vio_msckf_torch.config import TriangulationConfig
 from vio_msckf_torch.math import quat_to_rot
+from vio_msckf_torch.tensors import gather_rows
 
 _SAFE = 1e-12
 
@@ -26,36 +28,37 @@ def _safe(x):
 
 
 def _first_last(obs_valid):
-    """Index of the first and last True per row (0 / N-1 when none)."""
-    N = obs_valid.shape[1]
+    """Index of the first and last True along the last axis (0 / N-1 when
+    none)."""
+    N = obs_valid.shape[-1]
     ov = obs_valid.to(torch.int32)
-    i0 = torch.argmax(ov, dim=1)
-    iN = N - 1 - torch.argmax(torch.flip(ov, dims=[1]), dim=1)
+    i0 = torch.argmax(ov, dim=-1)
+    iN = N - 1 - torch.argmax(torch.flip(ov, dims=[-1]), dim=-1)
     return i0, iN
 
 
 def _view_poses(clone_q, clone_p, i0, R_c0c1, t_c0c1):
     """Per-feature, per-view poses relative to the first observing clone's
-    cam0 frame: R_rel (C, N, 2, 3, 3), t_rel (C, N, 2, 3), plus the anchor
-    (R_a, t_a): first-cam0 -> world."""
-    R_c0_w = quat_to_rot(clone_q).transpose(-1, -2)      # (N, 3, 3)
+    cam0 frame: R_rel (B, C, N, 2, 3, 3), t_rel (B, C, N, 2, 3), plus the
+    anchor (R_a, t_a): first-cam0 -> world. clone_q (B, N, 4), i0 (B, C)."""
+    R_c0_w = quat_to_rot(clone_q).transpose(-1, -2)      # (B, N, 3, 3)
     t_c0_w = clone_p
     R_10 = R_c0c1.T
     t_10 = -R_c0c1.T @ t_c0c1
     R_c1_w = R_c0_w @ R_10
     t_c1_w = (R_c0_w @ t_10) + t_c0_w
 
-    R_a = R_c0_w[i0]                       # (C, 3, 3)
-    t_a = t_c0_w[i0]                       # (C, 3)
+    R_a = gather_rows(R_c0_w, i0)              # (B, C, 3, 3)
+    t_a = gather_rows(t_c0_w, i0)              # (B, C, 3)
 
     def rel(Rv, tv):
-        Rr = torch.einsum("nji,cjk->cnik", Rv, R_a)       # Rv^T @ R_a
-        tr = torch.einsum("nji,cnj->cni", Rv, t_a[:, None, :] - tv[None])
+        Rr = torch.einsum("bnji,bcjk->bcnik", Rv, R_a)       # Rv^T @ R_a
+        tr = torch.einsum("bnji,bcnj->bcni", Rv, t_a[:, :, None, :] - tv[:, None])
         return Rr, tr
 
     R0r, t0r = rel(R_c0_w, t_c0_w)
     R1r, t1r = rel(R_c1_w, t_c1_w)
-    return (torch.stack([R0r, R1r], dim=2), torch.stack([t0r, t1r], dim=2),
+    return (torch.stack([R0r, R1r], dim=3), torch.stack([t0r, t1r], dim=3),
             R_a, t_a)
 
 
@@ -129,13 +132,22 @@ def _normal_equations(Rv, tv, zv, x, view_valid, huber_eps):
 
 def triangulate_all(obs, obs_valid, clone_q, clone_p, R_c0c1, t_c0c1,
                     cfg: TriangulationConfig):
-    """LM inverse-depth solve for every feature row.
+    """LM inverse-depth solve for every feature row of every sequence.
 
-    obs (C, N, 4), obs_valid (C, N). Returns (p_world (C, 3), ok (C,))."""
-    C, N, _ = obs.shape
+    obs (B, C, N, 4), obs_valid (B, C, N), clone_q (B, N, 4), clone_p
+    (B, N, 3). Returns (p_world (B, C, 3), ok (B, C))."""
+    B, C0, N, _ = obs.shape
     dtype, dev = obs.dtype, obs.device
     i0, iN = _first_last(obs_valid)
     R_rel, t_rel, R_a, t_a = _view_poses(clone_q, clone_p, i0, R_c0c1, t_c0c1)
+    # From here on the B * C feature rows are independent lanes.
+    C = B * C0
+    R_rel = R_rel.reshape(C, N, 2, 3, 3)
+    t_rel = t_rel.reshape(C, N, 2, 3)
+    R_a, t_a = R_a.reshape(C, 3, 3), t_a.reshape(C, 3)
+    obs = obs.reshape(C, N, 4)
+    obs_valid = obs_valid.reshape(C, N)
+    i0, iN = i0.reshape(C), iN.reshape(C)
     Rv = R_rel.reshape(C, 2 * N, 3, 3)
     tv = t_rel.reshape(C, 2 * N, 3)
     zv = obs.reshape(C, 2 * N, 2)
@@ -184,24 +196,24 @@ def triangulate_all(obs, obs_valid, clone_q, clone_p, R_c0c1, t_c0c1,
     ok = torch.all(torch.where(view_valid, depths > 0.0, torch.ones_like(view_valid)), dim=1)
     ok = ok & torch.any(obs_valid, dim=1)
     p_world = (R_a @ p_anchor[:, :, None])[..., 0] + t_a
-    return p_world, ok
+    return p_world.reshape(B, C0, 3), ok.reshape(B, C0)
 
 
 def check_motion_all(obs, obs_valid, clone_q, clone_p, threshold):
     """Parallax gate per feature row: orthogonal translation between the
     first and last observing clones vs the first bearing. Disabled when
-    threshold < 0 (the shipped config)."""
-    C = obs.shape[0]
+    threshold < 0 (the shipped config). Shapes as triangulate_all's."""
+    B, C = obs.shape[:2]
     if threshold < 0:
-        return torch.ones(C, dtype=torch.bool, device=obs.device)
+        return torch.ones((B, C), dtype=torch.bool, device=obs.device)
     i0, iN = _first_last(obs_valid)
-    ar = torch.arange(C, device=obs.device)
+    z1 = torch.gather(obs, 2, i0[:, :, None, None].expand(B, C, 1, 4))[:, :, 0, 0:2]
     R_c0_w = quat_to_rot(clone_q).transpose(-1, -2)
-    bearing = torch.cat([obs[ar, i0, 0:2], torch.ones_like(obs[:, 0, :1])], dim=1)
+    bearing = torch.cat([z1, torch.ones_like(z1[..., :1])], dim=-1)
     bearing = bearing / torch.clamp(
-        torch.linalg.vector_norm(bearing, dim=1, keepdim=True), min=_SAFE)
-    bearing_w = (R_c0_w[i0] @ bearing[:, :, None])[..., 0]
-    translation = clone_p[iN] - clone_p[i0]
-    parallel = torch.sum(translation * bearing_w, dim=1, keepdim=True)
+        torch.linalg.vector_norm(bearing, dim=-1, keepdim=True), min=_SAFE)
+    bearing_w = (gather_rows(R_c0_w, i0) @ bearing[..., None])[..., 0]
+    translation = gather_rows(clone_p, iN) - gather_rows(clone_p, i0)
+    parallel = torch.sum(translation * bearing_w, dim=-1, keepdim=True)
     orthogonal = translation - parallel * bearing_w
-    return torch.linalg.vector_norm(orthogonal, dim=1) > threshold
+    return torch.linalg.vector_norm(orthogonal, dim=-1) > threshold

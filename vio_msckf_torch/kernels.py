@@ -34,9 +34,9 @@ _F = ctypes.c_float
 
 # name -> argtypes; every function returns a CUDA error code (int).
 _SIGNATURES = {
-    "vio_fast_nms": [_P, _P, _I, _I, _F, _P],
+    "vio_fast_nms": [_P, _P, _I, _I, _I, _F, _P],
     "vio_spd_gj": [_P, _P, _P, _I, _I, _I, _P],
-    "vio_lk_pyramid": [_P] * 7 + [_I] * 4 + [_F, _F, _P],
+    "vio_lk_pyramid": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
 }
 
 _loaded = {}  # "lib" -> ctypes.CDLL; a loaded .so is process-wide anyway

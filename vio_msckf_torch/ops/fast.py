@@ -3,8 +3,12 @@
 Port of vio_msckf_tpu/ops/fast.py and ops/fast_pallas.py. `fast_score_map`
 is the plain PyTorch version (the twin); `fast_nms` is the kernel wrapper
 the tracker calls: on a CUDA tensor it launches csrc/fast_nms.cu, on a CPU
-tensor it runs the twin. Both give bit-identical maps.
+tensor it runs the twin. Both give bit-identical maps. Images come as
+(B, H, W) stacks, one per sequence; the kernel takes the whole stack in
+one launch.
 """
+
+import collections
 
 import torch
 
@@ -19,14 +23,16 @@ _BORDER = 3
 
 
 def fast_score_map(img, threshold):
-    """FAST-9 response with 3x3 non-max suppression: (H, W) -> (H, W),
-    0 where not a corner. The score is the max over the 16 cyclic 9-arcs
-    of the arc minimum of the circle differences, for both polarities."""
+    """FAST-9 response with 3x3 non-max suppression: (..., H, W) -> the
+    same shape, 0 where not a corner. The score is the max over the 16
+    cyclic 9-arcs of the arc minimum of the circle differences, for both
+    polarities."""
     img = img.to(torch.float32)
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    dims = (-2, -1)
     diffs = torch.stack(
-        [torch.roll(img, (-dy, -dx), dims=(0, 1)) - img for dy, dx in _CIRCLE]
-    )  # (16, H, W)
+        [torch.roll(img, (-dy, -dx), dims=dims) - img for dy, dx in _CIRCLE]
+    )  # (16, ..., H, W)
 
     def arc_score(d):
         m3 = torch.minimum(
@@ -51,7 +57,7 @@ def fast_score_map(img, threshold):
     score = torch.where(inside, score, zero)
 
     neigh = torch.stack([
-        torch.roll(score, (dy, dx), dims=(0, 1))
+        torch.roll(score, (dy, dx), dims=dims)
         for dy in (-1, 0, 1)
         for dx in (-1, 0, 1)
         if not (dy == 0 and dx == 0)
@@ -60,7 +66,8 @@ def fast_score_map(img, threshold):
 
 
 def fast_candidates(img, threshold):
-    """Pixels that pass FAST-9's compass test: (H, W) -> (H, W) bool.
+    """Pixels that pass FAST-9's compass test: (..., H, W) -> bool of the
+    same shape.
 
     Every 9-arc of the 16-point circle holds two neighbouring compass
     points k and k+4 (k in 0, 4, 8, 12), so a pixel can score above
@@ -70,7 +77,7 @@ def fast_candidates(img, threshold):
     score. The main path does not call this: the tests hold the rule with
     it, and chip_smoke.py counts the candidates it times."""
     img = img.to(torch.float32)
-    d = [torch.roll(img, (-dy, -dx), dims=(0, 1)) - img
+    d = [torch.roll(img, (-dy, -dx), dims=(-2, -1)) - img
          for dy, dx in _CIRCLE[::4]]
     hit = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
     for k in range(4):
@@ -80,47 +87,51 @@ def fast_candidates(img, threshold):
 
 
 def fast_nms(img, threshold):
-    """FAST-9 score + NMS map of one (H, W) f32 image.
+    """FAST-9 score + NMS maps of a (B, H, W) f32 stack of images.
 
-    CUDA tensor: the hand kernel (csrc/fast_nms.cu), counted in
-    `fast_nms.launches`. CPU tensor: `fast_score_map`."""
+    CUDA tensor: the hand kernel (csrc/fast_nms.cu), one launch for the
+    whole stack, counted per call shape in `fast_nms.by_shape`. CPU tensor:
+    `fast_score_map`."""
     if not img.is_cuda:
         return fast_score_map(img, threshold)
+    if img.dim() != 3:
+        raise ValueError(f"fast_nms: expected (B, H, W), got {tuple(img.shape)}")
     kernels.require(img, "fast_nms img", torch.float32)
-    if img.dim() != 2:
-        raise ValueError(f"fast_nms: expected (H, W), got {tuple(img.shape)}")
-    H, W = img.shape
+    B, H, W = img.shape
     out = torch.empty_like(img)
+    if B == 0:
+        return out
     code = kernels.lib().vio_fast_nms(
-        kernels.ptr(img), kernels.ptr(out), H, W, float(threshold),
+        kernels.ptr(img), kernels.ptr(out), B, H, W, float(threshold),
         kernels.stream_ptr(img))
     kernels.check(code, "vio_fast_nms")
-    fast_nms.launches += 1
+    fast_nms.by_shape[(B, H, W)] += 1
     return out
 
 
-fast_nms.launches = 0
+fast_nms.by_shape = collections.Counter()  # launches per call shape
 
 
 def detect_grid_features(score, mask, grid_row, grid_col, per_cell):
-    """Top-`per_cell` responses per grid cell.
+    """Top-`per_cell` responses per grid cell, per sequence.
 
-    score: (H, W) FAST map; mask: (H, W) bool, False suppresses. Cell
-    geometry: cell_h = ceil(H/grid_row), cell_w = ceil(W/grid_col).
+    score: (B, H, W) FAST maps; mask: (B, H, W) bool, False suppresses.
+    Cell geometry: cell_h = ceil(H/grid_row), cell_w = ceil(W/grid_col).
     Ties keep the lower flat index, like the reference's iterative argmax:
     a stable descending sort, since FAST scores are integer-valued and tie
-    often. Returns (xy (G, per_cell, 2) f32, resp (G, per_cell), valid).
+    often. Returns (xy (B, G, per_cell, 2) f32, resp (B, G, per_cell),
+    valid).
     """
-    H, W = score.shape
+    B, H, W = score.shape
     cell_h = -(-H // grid_row)
     cell_w = -(-W // grid_col)
     score = torch.where(mask, score, torch.zeros_like(score))
-    padded = score.new_zeros((grid_row * cell_h, grid_col * cell_w))
-    padded[:H, :W] = score
-    cells = padded.reshape(grid_row, cell_h, grid_col, cell_w)
-    cells = cells.permute(0, 2, 1, 3).reshape(grid_row * grid_col, cell_h * cell_w)
-    resp, idx = torch.sort(cells, dim=1, descending=True, stable=True)
-    resp, idx = resp[:, :per_cell], idx[:, :per_cell]
+    padded = score.new_zeros((B, grid_row * cell_h, grid_col * cell_w))
+    padded[:, :H, :W] = score
+    cells = padded.reshape(B, grid_row, cell_h, grid_col, cell_w)
+    cells = cells.permute(0, 1, 3, 2, 4).reshape(B, grid_row * grid_col, cell_h * cell_w)
+    resp, idx = torch.sort(cells, dim=-1, descending=True, stable=True)
+    resp, idx = resp[..., :per_cell], idx[..., :per_cell]
     iy = idx // cell_w
     ix = idx % cell_w
     gr = torch.arange(grid_row * grid_col, device=score.device)

@@ -11,13 +11,17 @@ image, and a bilinear tap outside that patch gets zero weight. Both the
 twin and the kernel compute the same window origins and drop the same
 taps.
 
+Pyramid levels are (B, H_l, W_l) stacks, one image per sequence, and
+points come as (B, P, 2): feature p of sequence b reads plane b only.
 `track_pyramid` is the kernel wrapper: on CUDA tensors it launches
-csrc/lk_pyramid.cu once for the whole level walk (counted in
-`track_pyramid.launches`); on CPU tensors it runs `track_pyramid_plain`,
-the PyTorch twin, which walks the levels with `track_level_plain`.
-`pyramidal_lk` and `lk_verify` are both one `track_pyramid` call.
+csrc/lk_pyramid.cu once for the whole level walk of all B * P features
+(counted per call shape in `track_pyramid.by_shape`); on CPU tensors it runs
+`track_pyramid_plain`, the PyTorch twin, which walks the levels with
+`track_level_plain`. `pyramidal_lk` and `lk_verify` are both one
+`track_pyramid` call.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -179,38 +183,48 @@ def track_level_plain(prev, nxt, sel, pts_prev, guess, win, iters, eps,
     return g, ok, lost, err, n_iter
 
 
+def _flat_lanes(B, P, n_first, dev):
+    """Per flat feature lane (B * P of them): its sequence, and its image
+    pair (0, or 1 from index n_first on within its sequence)."""
+    seq = torch.arange(B, device=dev).repeat_interleave(P)
+    if n_first is None:
+        return seq, torch.zeros_like(seq)
+    return seq, (torch.arange(P, device=dev) >= n_first).to(torch.int64).repeat(B)
+
+
 def track_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
                         min_eig_threshold, pyr_prev_b=None, pyr_next_b=None,
                         n_first=None, min_size=None):
     """The pyramid walk in PyTorch, level by level with `track_level_plain`.
 
-    Features [0, n_first) track pyr_prev -> pyr_next, the rest pyr_prev_b
-    -> pyr_next_b (all of them track pair A when n_first is None). Levels
-    whose min(H, W) < min_size (default win + 8) are skipped, as cv2 caps
-    maxLevel by image size. Returns (pts (P, 2), status (P,), err (P,),
-    n_iter (P,) int32: Newton iterations summed over the levels)."""
-    P = pts_prev.shape[0]
+    Levels are (B, H, W) stacks, points (B, P, 2); sequence b's features
+    read plane b. Within each sequence, features [0, n_first) track
+    pyr_prev -> pyr_next, the rest pyr_prev_b -> pyr_next_b (all of them
+    track pair A when n_first is None). Levels whose min(H, W) < min_size
+    (default win + 8) are skipped, as cv2 caps maxLevel by image size.
+    Returns (pts (B, P, 2), status (B, P), err (B, P), n_iter (B, P) int32:
+    Newton iterations summed over the levels)."""
+    B, P = pts_prev.shape[:2]
     dev = pts_prev.device
     if min_size is None:
         min_size = win + 8
-    if n_first is None:
-        sel = torch.zeros(P, dtype=torch.int64, device=dev)
-    else:
-        sel = (torch.arange(P, device=dev) >= n_first).to(torch.int64)
+    seq, pair = _flat_lanes(B, P, n_first, dev)
+    sel = seq + B * pair
+    flat_prev = pts_prev.reshape(B * P, 2)
     levels = len(pyr_prev) - 1
-    guess = pts_init / (2.0 ** levels)
-    status = torch.ones(P, dtype=torch.bool, device=dev)
-    err = torch.zeros(P, dtype=torch.float32, device=dev)
-    n_iter = torch.zeros(P, dtype=torch.int32, device=dev)
+    guess = pts_init.reshape(B * P, 2) / (2.0 ** levels)
+    status = torch.ones(B * P, dtype=torch.bool, device=dev)
+    err = torch.zeros(B * P, dtype=torch.float32, device=dev)
+    n_iter = torch.zeros(B * P, dtype=torch.int32, device=dev)
     for lvl in range(levels, -1, -1):
-        H, W = pyr_prev[lvl].shape
+        H, W = pyr_prev[lvl].shape[-2:]
         if min(H, W) >= min_size:
-            prev, nxt = pyr_prev[lvl][None], pyr_next[lvl][None]
+            prev, nxt = pyr_prev[lvl], pyr_next[lvl]
             if n_first is not None:
-                prev = torch.stack([pyr_prev[lvl], pyr_prev_b[lvl]])
-                nxt = torch.stack([pyr_next[lvl], pyr_next_b[lvl]])
+                prev = torch.cat([prev, pyr_prev_b[lvl]])
+                nxt = torch.cat([nxt, pyr_next_b[lvl]])
             guess, ok, lost, err, n = track_level_plain(
-                prev, nxt, sel, pts_prev / (2.0 ** lvl), guess, win, iters, eps,
+                prev, nxt, sel, flat_prev / (2.0 ** lvl), guess, win, iters, eps,
                 min_eig_threshold)
             n_iter = n_iter + n
             status = status & ~lost
@@ -218,21 +232,23 @@ def track_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
                 status = status & ok
         if lvl != 0:
             guess = guess * 2.0
-    H, W = pyr_next[0].shape
-    return guess, status & _in_image(guess, H, W), err, n_iter
+    H, W = pyr_next[0].shape[-2:]
+    status = status & _in_image(guess, H, W)
+    return (guess.reshape(B, P, 2), status.reshape(B, P), err.reshape(B, P),
+            n_iter.reshape(B, P))
 
 
 def track_pyramid(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
                   min_eig_threshold, pyr_prev_b=None, pyr_next_b=None,
                   n_first=None, min_size=None):
     """The LK level walk of `track_pyramid_plain` (same arguments and
-    results) as one kernel launch on CUDA tensors; CPU tensors run the
-    twin."""
+    results) as one kernel launch on CUDA tensors, for all B sequences;
+    CPU tensors run the twin."""
     if not pts_prev.is_cuda:
         return track_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, win, iters,
                                    eps, min_eig_threshold, pyr_prev_b, pyr_next_b,
                                    n_first, min_size)
-    P = pts_prev.shape[0]
+    B, P = pts_prev.shape[:2]
     L = len(pyr_prev)
     if win % 2 != 1 or win > _MAX_WIN:
         raise ValueError(f"lk_pyramid kernel takes an odd window <= {_MAX_WIN}, got {win}")
@@ -244,49 +260,50 @@ def track_pyramid(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
         n_first, pyr_prev_b, pyr_next_b = P, pyr_prev, pyr_next
     desc = _LKPyramid(levels=L)
     for lvl in range(L):
-        H, W = pyr_prev[lvl].shape
+        H, W = pyr_prev[lvl].shape[-2:]
         for pair, pyrs in enumerate(((pyr_prev, pyr_next), (pyr_prev_b, pyr_next_b))):
             for name, pyr in zip(("prev", "next"), pyrs):
                 kernels.require(pyr[lvl], f"track_pyramid {name} level {lvl}",
-                                torch.float32, (H, W))
+                                torch.float32, (B, H, W))
                 getattr(desc, name)[pair * _MAX_LEVELS + lvl] = pyr[lvl].data_ptr()
         desc.H[lvl], desc.W[lvl] = H, W
         desc.run[lvl] = int(min(H, W) >= min_size)
     pts_prev = pts_prev.to(torch.float32).contiguous()
     pts_init = pts_init.to(torch.float32).contiguous()
-    kernels.require(pts_prev, "track_pyramid pts_prev", torch.float32, (P, 2))
-    kernels.require(pts_init, "track_pyramid pts_init", torch.float32, (P, 2))
+    kernels.require(pts_prev, "track_pyramid pts_prev", torch.float32, (B, P, 2))
+    kernels.require(pts_init, "track_pyramid pts_init", torch.float32, (B, P, 2))
     dev = pts_prev.device
     pts = torch.empty_like(pts_prev)
-    status = torch.empty(P, dtype=torch.bool, device=dev)
-    err = torch.empty(P, dtype=torch.float32, device=dev)
-    n_iter = torch.empty(P, dtype=torch.int32, device=dev)
-    if P == 0:
+    status = torch.empty((B, P), dtype=torch.bool, device=dev)
+    err = torch.empty((B, P), dtype=torch.float32, device=dev)
+    n_iter = torch.empty((B, P), dtype=torch.int32, device=dev)
+    if B * P == 0:
         return pts, status, err, n_iter
     code = kernels.lib().vio_lk_pyramid(
         ctypes.byref(desc), kernels.ptr(pts_prev), kernels.ptr(pts_init),
         kernels.ptr(pts), kernels.ptr(status), kernels.ptr(err), kernels.ptr(n_iter),
-        P, int(n_first), win, iters, float(eps * eps), float(min_eig_threshold),
+        B * P, P, int(n_first), win, iters, float(eps * eps), float(min_eig_threshold),
         kernels.stream_ptr(pts_prev))
     kernels.check(code, "vio_lk_pyramid")
-    track_pyramid.launches += 1
+    track_pyramid.by_shape[(B, P, int(n_first))] += 1
     return pts, status, err, n_iter
 
 
-track_pyramid.launches = 0
+track_pyramid.by_shape = collections.Counter()  # launches per call shape
 
 
 def _in_image(guess, H, W):
-    return ((guess[:, 0] >= 0) & (guess[:, 0] <= W - 1)
-            & (guess[:, 1] >= 0) & (guess[:, 1] <= H - 1))
+    return ((guess[..., 0] >= 0) & (guess[..., 0] <= W - 1)
+            & (guess[..., 1] >= 0) & (guess[..., 1] <= H - 1))
 
 
 def pyramidal_lk(pyr_prev, pyr_next, pts_prev, pts_init, win=15, iters=30,
                  eps=0.01, min_eig_threshold=1e-4):
-    """Track pts_prev (P, 2) from pyramid pyr_prev into pyr_next, from the
-    initial guesses pts_init (full-resolution pixels).
+    """Track pts_prev (B, P, 2) from pyramid pyr_prev into pyr_next (levels
+    (B, H_l, W_l)), from the initial guesses pts_init (full-resolution
+    pixels).
 
-    Returns (pts_next (P, 2), status (P,), err (P,)). Status fails when the
+    Returns (pts_next (B, P, 2), status (B, P), err (B, P)). Status fails when the
     point leaves the image, drifts past the margin at any level, or the
     finest level's gradient matrix is degenerate (cv2's semantics)."""
     return track_pyramid(pyr_prev, pyr_next, pts_prev, pts_init, win, iters, eps,
@@ -298,14 +315,14 @@ def lk_verify(pyr_prev_a, pyr_next_a, pyr_prev_b, pyr_next_b,
               min_eig_threshold=1e-4):
     """One finest-level LK pass over two image pairs at once (the
     backward-consistency checks both start at converged solutions, so the
-    coarse levels add nothing): one `track_pyramid` call over both pairs,
-    the points of pair A first.
+    coarse levels add nothing): one `track_pyramid` call over both pairs
+    of every sequence, each sequence's points of pair A first.
 
-    Returns ((pts (Pa, 2), status, err), (pts (Pb, 2), status, err))."""
-    Pa = pts_a.shape[0]
+    Returns ((pts (B, Pa, 2), status, err), (pts (B, Pb, 2), status, err))."""
+    Pa = pts_a.shape[1]
     guess, status, err, _ = track_pyramid(
-        pyr_prev_a[:1], pyr_next_a[:1], torch.cat([pts_a, pts_b]),
-        torch.cat([init_a, init_b]), win, iters, eps, min_eig_threshold,
+        pyr_prev_a[:1], pyr_next_a[:1], torch.cat([pts_a, pts_b], dim=1),
+        torch.cat([init_a, init_b], dim=1), win, iters, eps, min_eig_threshold,
         pyr_prev_b=pyr_prev_b[:1], pyr_next_b=pyr_next_b[:1], n_first=Pa, min_size=0)
-    return ((guess[:Pa], status[:Pa], err[:Pa]),
-            (guess[Pa:], status[Pa:], err[Pa:]))
+    return ((guess[:, :Pa], status[:, :Pa], err[:, :Pa]),
+            (guess[:, Pa:], status[:, Pa:], err[:, Pa:]))

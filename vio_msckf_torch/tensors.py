@@ -1,4 +1,10 @@
-"""Small helpers for dataclasses of tensors and fixed-shape scatters."""
+"""Small helpers for dataclasses of tensors and fixed-shape scatters.
+
+Every module under filter/, frontend/ and ops/ takes its state and frames
+with a leading batch axis B (B independent sequences in the same
+launches); `unsqueeze_record` / `index_record` move between one sequence's
+record and a batch of them.
+"""
 
 import dataclasses
 
@@ -6,36 +12,77 @@ import torch
 
 
 class TensorRecord:
-    """`.to(device)` and `.replace(**fields)` for a dataclass of tensors."""
+    """`.to(device)` and `.replace(**fields)` for a dataclass of tensors
+    (a field may also be a list of tensors, e.g. a pyramid)."""
 
     def to(self, device):
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        })
+        return _map_fields(self, lambda t: t.to(device))
 
     def replace(self, **fields):
         return dataclasses.replace(self, **fields)
 
 
+def _map_fields(rec, fn):
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return fn(v)
+        if isinstance(v, list):
+            return [fn(t) for t in v]
+        return v
+
+    return dataclasses.replace(rec, **{
+        f.name: one(getattr(rec, f.name)) for f in dataclasses.fields(rec)})
+
+
+def unsqueeze_record(rec):
+    """One sequence's record as a batch of one (views, no copy)."""
+    return _map_fields(rec, lambda t: t[None])
+
+
+def index_record(rec, b):
+    """Sequence b of a batched record (views, no copy)."""
+    return _map_fields(rec, lambda t: t[b])
+
+
+def _lead(pred, x):
+    """pred (B,) shaped to broadcast against x (B, ...)."""
+    return pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim()))
+
+
 def select(pred, a, b):
-    """Field-wise torch.where(pred, a, b) over two records of one type: the
-    compute-and-select form of a branch, with no host synchronisation."""
+    """Field-wise torch.where(pred, a, b) over two batched records of one
+    type, pred (B,) one decision per sequence: the compute-and-select form
+    of a branch, with no host synchronisation."""
     return dataclasses.replace(a, **{
-        f.name: torch.where(pred, getattr(a, f.name), getattr(b, f.name))
+        f.name: torch.where(_lead(pred, getattr(a, f.name)), getattr(a, f.name),
+                            getattr(b, f.name))
         for f in dataclasses.fields(a)
         if isinstance(getattr(a, f.name), torch.Tensor)
     })
 
 
+def _batch_index(x, idx):
+    """arange(B) shaped (B, 1, ..., 1) to index axis 0 of x alongside an
+    index tensor idx of shape (B, ...)."""
+    B = x.shape[0]
+    return torch.arange(B, device=x.device).reshape((B,) + (1,) * (idx.dim() - 1))
+
+
+def gather_rows(x, idx):
+    """x[b, idx[b]] per sequence: x (B, N, ...), idx (B, ...) int64 ->
+    idx.shape + x.shape[2:]. A device gather, no host round trip."""
+    return x[_batch_index(x, idx), idx]
+
+
 def drop_scatter(x, idx, values, col=None):
-    """x[idx] = values (or x[idx, col] = values) on a copy of x, where
-    idx == len(x) means "drop" (XLA's scatter mode="drop"): the write goes
-    to one spare row that is cut off. A Python value is broadcast on the
-    device; writing it from the host would synchronise."""
-    spare = torch.cat([x, x[:1]], dim=0)
+    """Per sequence b: x[b, idx[b]] = values[b] (or x[b, idx[b], col[b]])
+    on a copy of x (B, T, ...), where idx == T means "drop" (XLA's scatter
+    mode="drop"): the write goes to one spare row per sequence that is cut
+    off. A Python value is broadcast on the device; writing it from the
+    host would synchronise."""
+    spare = torch.cat([x, x[:, :1]], dim=1)
     if not isinstance(values, torch.Tensor):
         values = torch.full((), values, dtype=x.dtype, device=x.device)
-    spare.index_put_((idx,) if col is None else (idx, col), values)
-    return spare[:-1]
+    bi = _batch_index(x, idx)
+    spare.index_put_((bi, idx) if col is None else (bi, idx, col), values)
+    return spare[:, :-1]
