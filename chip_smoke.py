@@ -21,7 +21,8 @@ Phases, one line each; any failure raises and exits nonzero:
                 (each must be > 0), host syncs in one warm step, and
                 frames/s over a second pass.
   6. batch    - the bench's 4-sequence batch (bench.py:run_batched: seeds
-                4..7) through VIOEngine.run_batch at B = 4, twice: ATE/RPE
+                4..7), their first 110 frames (cut from 220),
+                through VIOEngine.run_batch at B = 4, twice: ATE/RPE
                 per sequence (0.5 m bound), member 0 against the slice's
                 trajectory (same workload; 1e-4 m bound), host syncs in one
                 warm batched step (0), hand-kernel launches per batched step
@@ -31,14 +32,33 @@ Phases, one line each; any failure raises and exits nonzero:
   7. suite    - the other cells of bench.py --suite: fast motion and the
                 hostile world (rendered by the port) as one B = 2 batch,
                 each member held against its sequence run alone (1e-4 m
-                bound), then the 30-clone window (D = 201) as one sequence;
+                bound), then the 30-clone window (D = 201) as one sequence,
+                each over the first 64 frames (cut from 220);
                 ATE/RPE each (0.5 m bound), beside the JAX package's TPU v5e
                 numbers from SUITE_r05.json (the reference's, not the
                 port's).
+  8. cli      - the user's entry point, `python -m vio_msckf_torch --path`
+                (vio_msckf_torch.cli.main): the bench sequence written as
+                an EuRoC mav0/ tree by the port's writer, then run chunked
+                over every frame (dataset_fps, aligned ATE as the CLI
+                computes it, RPE), with --preload and per frame over the
+                first 110 frames (their TUM trajectories must equal the
+                chunked run's), and checkpointed at frame 64 and resumed
+                (the final pose must equal the uninterrupted run's); the
+                PNG decoder that ran.
+  9. eskf     - the ESKF pipeline (cli.eskf_euroc, the --pipeline eskf
+                --path flow below its plots: the card's machine has no
+                matplotlib) at euroc_config() with the default EskfConfig
+                (K = 512) on the first 110 frames of the same tree: aligned
+                ATE (1.0 m bound, the JAX package's own for this flow),
+                stereo and temporal matches and inliers per frame, frames/s,
+                kernel launches and host syncs of one warm step, and the
+                FAST kernel held against its twin bit for bit on the ESKF's
+                rectified stereo pair at threshold 20.
 Launches are counted per path and per call shape: every counter is set to 0
-just before a path runs and read just after; every kernel must launch in
-every path, and every call shape a path launches must be one that phase 4
-held against the twin.
+just before a path runs and read just after; every kernel of a path must
+launch in it (the ESKF path has one, FAST), and every call shape a path
+launches must be one that a check held against the twin.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -55,9 +75,14 @@ bytes the function must move (inputs read once, outputs written once) at
 SXM data sheet).
 """
 
+import contextlib
+import io
 import json
+import logging
 import math
+import os
 import subprocess
+import tempfile
 import time
 import warnings
 
@@ -68,9 +93,30 @@ SIM = dict(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5), yaw_rate=0.2, wobble_amp=
 RENDER = dict(radius=14.0, seed=7)
 ATE_BOUND_M = 0.5
 BATCH = 4                      # bench.py --suite: the 4-sequence batch
+CLI_CHUNK = 32                 # the CLI's default --chunk
+CLI_PARTIAL = 110              # frames of the --preload and per-frame runs
+CKPT_FRAME = 64                # where the interrupted CLI run checkpoints
+# The ESKF's bound is the JAX package's own for its --path flow
+# (tests/test_euroc_pipeline.py:112); the loosely coupled filter drifts more
+# than the MSCKF: over all 220 frames the JAX package's ESKF reaches
+# 0.7902 m (SE3-aligned; its CLI on a CPU, on the same tree written by the
+# port's writer on a CPU); over the ESKF_FRAMES (110) frames run here,
+# 0.4419 m, printed beside the port's as an anchor.
+ESKF_ATE_BOUND_M = 1.0
+ESKF_CPU_ANCHOR_ATE = 0.4419
 # bench.py --suite's other cells: (name, SimConfig overrides, hostile).
 FAST_MOTION = dict(amp=(2.5, 1.8, 0.9), yaw_rate=0.6, wobble_amp=0.25, seed=11)
 CLONES_30 = 30
+# Depth cuts, to keep the smoke well inside its time limit with the cli
+# and eskf phases on a slow host: the batch phase covers the first
+# BATCH_DEPTH frames of its four sequences, the suite's cells (the
+# fast-motion + hostile B = 2 batch, each member alone, the 30-clone
+# window) the first SUITE_DEPTH frames, the ESKF the first ESKF_FRAMES
+# frames of the CLI's tree (`--max-frames`); the slice and the CLI's
+# chunked run cover all 220.
+BATCH_DEPTH = 110
+SUITE_DEPTH = 64
+ESKF_FRAMES = 110
 # The JAX package's ATE in SUITE_r05.json (a TPU v5e run of the reference;
 # printed beside the port's numbers as an anchor, not as the port's).
 TPU_ANCHOR_ATE = {"fast motion": 0.1015, "hostile": 0.1767, "30 clones": 0.0535,
@@ -80,8 +126,12 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of the run, after the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f}s {msg}", flush=True)
 
 
 def device_ms(fn, n, runs=5, warmup=2, sync_free=True):
@@ -250,6 +300,20 @@ def fast_inputs(frames, n, dev):
     return {k: v.contiguous() for k, v in imgs.items()}
 
 
+def fast_call(img, thr, path):
+    """One FAST call shape timed: kernel, twin, bound."""
+    from vio_msckf_torch.ops import fast
+
+    out = fast.fast_nms(img, thr)
+    c = dict(path=path, shape=list(img.shape), threshold=float(thr),
+             corners=int((out > 0).sum()), candidates=int(fast.fast_candidates(img, thr).sum()),
+             ms=device_ms(lambda: fast.fast_nms(img, thr), 200),
+             plain_ms=device_ms(lambda: fast.fast_score_map(img, thr), 50),
+             library_ms=None, bytes=nbytes(img, out), ops=img.numel() * FAST_OPS_PER_PX)
+    c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
+    return c
+
+
 def check_fast(frames, n, dev):
     import torch
     from vio_msckf_torch.ops import fast
@@ -268,14 +332,7 @@ def check_fast(frames, n, dev):
                                      f"{tuple(img.shape)} at threshold {thr}: {bad} pixels")
 
     def timed(img, path):
-        out = fast.fast_nms(img, 15.0)
-        c = dict(path=path, shape=list(img.shape), corners=int((out > 0).sum()),
-                 candidates=int(fast.fast_candidates(img, 15.0).sum()),
-                 ms=device_ms(lambda: fast.fast_nms(img, 15.0), 200),
-                 plain_ms=device_ms(lambda: fast.fast_score_map(img, 15.0), 50),
-                 library_ms=None, bytes=nbytes(img, out), ops=img.numel() * FAST_OPS_PER_PX)
-        c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
-        return c
+        return fast_call(img, 15.0, path)
 
     # The one-sequence path's call (cam0 level 0 at the tracker's threshold
     # 15); the batch path's call, one (4, 480, 752) launch; the suite's
@@ -534,10 +591,11 @@ def _counters():
             for name, (mod, fn) in COUNTERS.items()}
 
 
-def counted(path, run):
+def counted(path, run, kernels=tuple(COUNTERS)):
     """Run one path with every kernel counter set to 0 just before and read
-    just after; fails unless every kernel launched in it. Returns (run's
-    result, {kernel: launches}, {kernel: {call shape: launches}})."""
+    just after; fails unless every kernel of the path (`kernels`) launched
+    in it. Returns (run's result, {kernel: launches}, {kernel: {call shape:
+    launches}})."""
     import torch
 
     counters = _counters()
@@ -547,8 +605,8 @@ def counted(path, run):
     torch.cuda.synchronize()
     shapes = {k: dict(c.by_shape) for k, c in counters.items()}
     launches = {k: sum(s.values()) for k, s in shapes.items()}
-    for k, v in launches.items():
-        if v <= 0:
+    for k in kernels:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was never launched on the {path} path")
     return result, launches, shapes
 
@@ -652,8 +710,10 @@ def phase_batch(cfg, dev, single):
     from vio_msckf_torch.engine import VIOEngine
 
     t0 = time.perf_counter()
-    frames, inits, gts, n = stack_workloads(
-        [build_workload(cfg, dev, dict(seed=4 + b)) for b in range(BATCH)])
+    n = BATCH_DEPTH
+    frames, inits, gts, _ = stack_workloads(
+        [({k: v[:n] for k, v in w[0].items()}, w[1], w[2][:n], n)
+         for w in (build_workload(cfg, dev, dict(seed=4 + b)) for b in range(BATCH))])
     torch.cuda.synchronize()
     log(f"[batch] {BATCH} sequences (seeds 4..{3 + BATCH}) x {n} frames rendered in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -672,7 +732,7 @@ def phase_batch(cfg, dev, single):
         f"{a:.4f}" for a, _ in metrics) + " m; RPE " + ", ".join(
         f"{r:.4f}" for _, r in metrics) + f" m (bound {ATE_BOUND_M} m; TPU v5e anchor "
         f"{TPU_ANCHOR_ATE['4-sequence batch']} m, the JAX package's)")
-    gap = float(np.abs(est[0] - single["est"]).max())
+    gap = float(np.abs(est[0] - single["est"][:n]).max())
     log(f"[batch] member 0 against the one-sequence run of the same workload: max "
         f"per-frame position gap {gap:.3g} m (bound 1e-4 m)")
     if not gap <= 1e-4:
@@ -728,7 +788,9 @@ def phase_suite(cfg, dev):
     names = ("fast motion", "hostile")
     workloads = [build_workload(cfg, dev, FAST_MOTION),
                  build_workload(cfg, dev, augs=HOSTILE_AUGS)]
-    frames, inits, gts, n = stack_workloads(workloads)
+    n = SUITE_DEPTH
+    workloads = [({k: v[:n] for k, v in w[0].items()}, w[1], w[2][:n], n) for w in workloads]
+    frames, inits, gts, _ = stack_workloads(workloads)
     eng = VIOEngine(cfg, dev)
     t0 = time.perf_counter()
     (_, outs), launches, shapes = counted(
@@ -757,7 +819,9 @@ def phase_suite(cfg, dev):
 
     # The 30-clone window (bench.py: FilterConfig(max_cam_state_size=30)).
     big = cfg.replace(filter=FilterConfig(max_cam_state_size=CLONES_30))
-    dframes, init, gt, n = build_workload(big, dev)
+    dframes, init, gt, _ = build_workload(big, dev)
+    n = SUITE_DEPTH
+    dframes, gt = {k: v[:n] for k, v in dframes.items()}, gt[:n]
     eng = VIOEngine(big, dev)
     t0 = time.perf_counter()
     (_, outs), launches, shapes = counted("30 clones", lambda: eng.run_sequence(
@@ -773,10 +837,211 @@ def phase_suite(cfg, dev):
     return out, suite_launches
 
 
+def run_cli(argv):
+    """vio_msckf_torch.cli.main(argv), its standard output captured; returns
+    the numbers it printed ({"dataset_fps": x, ...})."""
+    from vio_msckf_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    printed = {}
+    for line in buf.getvalue().splitlines():
+        key, _, val = line.partition(" ")
+        with contextlib.suppress(ValueError):
+            printed[key] = float(val)
+    return printed
+
+
+def tum_lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def tum_positions(lines):
+    return np.array([[float(v) for v in ln.split()[1:4]] for ln in lines])
+
+
+def phase_cli(cfg, dev, root):
+    """The EuRoC entry point, in its three modes and through a checkpoint."""
+    import torch
+    from vio_msckf_torch.data.euroc import EuRoCSequence
+    from vio_msckf_torch.data.simulator import SimConfig
+    from vio_msckf_torch.data.synth_euroc import write_synthetic_euroc
+    from vio_msckf_torch.engine import VIOEngine
+    from vio_msckf_torch.runtime import native_loader
+    from vio_msckf_torch.utils.checkpoint import load_checkpoint
+    from vio_msckf_torch.utils.metrics import ate_rmse, rpe_rmse
+
+    t0 = time.perf_counter()
+    written = write_synthetic_euroc(root, cfg, SimConfig(**SIM), render_seed=RENDER["seed"],
+                                    device=dev)
+    log(f"[cli] wrote the bench sequence as an EuRoC tree: {written} stereo PNG pairs "
+        f"{cfg.cam0.resolution[0]}x{cfg.cam0.resolution[1]} in "
+        f"{time.perf_counter() - t0:.2f} s (port renderer + numpy/zlib PNG encoder)")
+    decoder = native_loader.decoder_name()
+    log(f"[cli] PNG decoder: {decoder}")
+    f = lambda name: os.path.join(root, name)  # noqa: E731
+    base = ["--path", root, "--offset", "0", "--chunk", str(CLI_CHUNK)]
+    runs = {}
+
+    def mode(path, argv):
+        t = time.perf_counter()
+        printed, launches, shapes = counted(path, lambda: run_cli(base + argv))
+        runs[path] = dict(printed=printed, launches=launches, shapes=shapes,
+                          seconds=time.perf_counter() - t)
+        return printed
+
+    chunked = mode("cli", ["--out", f("chunked.txt"), "--checkpoint", f("chunked.ckpt")])
+    lines = tum_lines(f("chunked.txt"))
+    n = len(lines)
+    est = tum_positions(lines)
+    seq = EuRoCSequence(root, 0.0)
+    times = np.array([float(ln.split()[0]) for ln in lines])
+    gt = seq.gt_aligned_positions(times)
+    ate, rpe = ate_rmse(est, gt, align=True), rpe_rmse(est, gt)
+    l_cli = runs["cli"]["launches"]
+    log(f"[cli] chunked (--chunk {CLI_CHUNK}), {n} frames: dataset_fps "
+        f"{chunked['dataset_fps']:.2f}, ATE {ate:.4f} m (SE3-aligned, as the CLI prints: "
+        f"{chunked['ate_rmse_m']}), RPE {rpe:.4f} m, {runs['cli']['seconds']:.2f} s in "
+        f"main(); launches " + ", ".join(f"{k} {v} ({v / n:.2f}/frame)" for k, v in l_cli.items()))
+    if not (np.isfinite(est).all() and math.isfinite(ate) and ate <= ATE_BOUND_M):
+        raise AssertionError(f"cli: trajectory diverged: ATE {ate} m")
+
+    pre = mode("cli --preload", ["--max-frames", str(CLI_PARTIAL), "--preload",
+                                 "--out", f("preload.txt")])
+    per = mode("cli per-frame", ["--max-frames", str(CLI_PARTIAL), "--ratio", "1000",
+                                 "--out", f("per_frame.txt")])
+    log(f"[cli] --preload, {CLI_PARTIAL} frames: dataset_fps_compute "
+        f"{pre['dataset_fps_compute']:.2f}, dataset_fps {pre['dataset_fps']:.2f}; per frame "
+        f"(--ratio 1000): dataset_fps {per['dataset_fps']:.2f}")
+    gaps = {}
+    for name in ("preload", "per_frame"):
+        other = tum_lines(f(f"{name}.txt"))
+        same = other == lines[:CLI_PARTIAL]
+        gaps[name] = float(np.abs(tum_positions(other) - est[:CLI_PARTIAL]).max())
+        log(f"[cli] {name} against chunked over {CLI_PARTIAL} frames: TUM lines "
+            f"{'identical' if same else 'differ'}, max position gap {gaps[name]:.3g} m")
+        if not gaps[name] <= 1e-6:
+            raise AssertionError(f"cli {name} is {gaps[name]} m from the chunked run")
+
+    mode("cli checkpoint", ["--max-frames", str(CKPT_FRAME), "--checkpoint", f("part.ckpt"),
+                            "--checkpoint-every", str(CKPT_FRAME)])
+    mode("cli resume", ["--resume", f("part.ckpt"), "--checkpoint", f("resumed.ckpt"),
+                        "--out", f("resumed.txt")])
+    like = VIOEngine(cfg, dev).init()
+    (c_full, step_full, _), (c_res, step_res, _) = (load_checkpoint(f(x), like)
+                                                  for x in ("chunked.ckpt", "resumed.ckpt"))
+    gap = float((c_full[1].p - c_res[1].p).abs().max())
+    resumed = tum_lines(f("resumed.txt"))
+    log(f"[cli] checkpoint at frame {CKPT_FRAME}, resumed to frame {step_res}: final pose "
+        f"{gap:.3g} m from the uninterrupted run's (bound 1e-6 m); resumed TUM lines "
+        f"{'identical to' if resumed == lines[CKPT_FRAME:] else 'differ from'} the "
+        f"uninterrupted run's")
+    if step_full != n or step_res != n or not gap <= 1e-6:
+        raise AssertionError(f"resume: steps {step_full}/{step_res}, final pose gap {gap} m")
+    torch.cuda.synchronize()
+    return dict(runs=runs, n=n, ate=ate, rpe=rpe, fps=chunked["dataset_fps"], decoder=decoder,
+                gaps=gaps, resume_gap=gap)
+
+
+def phase_eskf(cfg, dev, root, fast_entry):
+    """The ESKF pipeline over the CLI phase's tree."""
+    import torch
+    from vio_msckf_torch import cli
+    from vio_msckf_torch.data.euroc import EuRoCSequence, bundle_euroc_frames
+    from vio_msckf_torch.eskf import EskfConfig, EskfVio
+    from vio_msckf_torch.ops import fast
+
+    args = cli.build_parser().parse_args(["--path", root, "--offset", "0", "--pipeline", "eskf",
+                                          "--max-frames", str(ESKF_FRAMES)])
+    quiet = logging.getLogger("chip_smoke.eskf")
+    quiet.setLevel(logging.WARNING)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (frame_times, outs, ate), launches, shapes = counted(
+            "eskf", lambda: cli.eskf_euroc(args, quiet), kernels=("fast_nms",))
+    sec = time.perf_counter() - t0
+    n = len(frame_times)
+    med = {k: float(np.median(outs[k][1:])) for k in ("n_stereo", "n_matches", "n_inliers")}
+    log(f"[eskf] {n} frames, K = {EskfConfig().n_keypoints}: eskf_ate_rmse_m {ate:.4f} "
+        f"(SE3-aligned, as the CLI prints; bound {ESKF_ATE_BOUND_M} m; the JAX package's "
+        f"ESKF on a CPU: {ESKF_CPU_ANCHOR_ATE} m), median per frame: {med['n_stereo']:.0f} "
+        f"stereo matches, "
+        f"{med['n_matches']:.0f} temporal matches, {med['n_inliers']:.0f} inliers; "
+        f"{n / sec:.2f} frames/s ({sec:.2f} s, decode included); launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    if not (np.isfinite(outs["p"]).all() and ate is not None and math.isfinite(ate)
+            and ate <= ESKF_ATE_BOUND_M):
+        raise AssertionError(f"eskf: trajectory diverged: ATE {ate} m")
+
+    # One warm step: kernel launches (torch.profiler) and host syncs.
+    seq = EuRoCSequence(root, 0.0)
+    frames, _, first, _ = bundle_euroc_frames(seq, cfg)
+    vio = EskfVio(cfg, device=dev)
+
+    def frame(k):
+        return dict(cam0_img=torch.as_tensor(seq.load_image(first + k, 0), device=dev),
+                    cam1_img=torch.as_tensor(seq.load_image(first + k, 1), device=dev),
+                    **{key: torch.as_tensor(frames[key][k], device=dev)
+                       for key in ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")})
+
+    carry = vio.init(frames["imu_acc"][1][frames["imu_valid"][1]][0])
+    kw = min(2, n - 1)      # the step's launches do not depend on the frame
+    for k in range(kw):
+        carry, _ = vio.step(carry, frame(k))
+    fw = frame(kw)
+    step = lambda: vio.step(carry, fw)  # noqa: E731
+    step()
+    kl, dev_ms, _ = launch_profile(step)
+    syncs = host_syncs(step)
+    t1 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / 3 * 1e3
+    log(f"[eskf] one warm step: {sum(kl.values())} kernel launches ("
+        + ", ".join(f"{k} {v}" for k, v in sorted(kl.items())) + f"), device kernel time "
+        f"{dev_ms:.3f} ms in a {step_ms:.1f} ms step (torch.profiler; host clock over 3 "
+        f"steps); host syncs {len(syncs)}"
+        + (f" ({'; '.join(sorted(set(syncs)))})" if syncs else ""))
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in one ESKF step")
+
+    # FAST at the ESKF's call: both rectified views of the decoded frame
+    # pair as one (2, H, W) stack at the ESKF's threshold, bit for bit.
+    thr = vio.eskf.fast_threshold
+    err, calls = 0.0, []
+    kt = min(40, n - 1)                       # a frame in motion
+    for k in (0, kt, n - 1):
+        rect = vio.rectify(*(torch.as_tensor(seq.load_image(first + k, cam), device=dev)
+                             for cam in (0, 1))).contiguous()
+        out, want = fast.fast_nms(rect, thr), fast.fast_score_map(rect, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"FAST kernel differs from its twin on the ESKF's rectified "
+                                 f"frame {k} at threshold {thr}: {int((out != want).sum())} px")
+        err = max(err, float((out - want).abs().max()))
+        if k == kt:
+            calls.append(dict(fast_call(rect, thr, "eskf"), per_frame=1))
+    c = calls[0]
+    fast_entry["calls"].append(c)
+    fast_entry["eskf"] = summed(calls)
+    fast_entry["max_abs_err"] = max(fast_entry["max_abs_err"], err)
+    log(f"[kernel fast_nms] the ESKF's call {tuple(c['shape'])} at threshold {thr}: bit-exact "
+        f"on the rectified pairs of frames 0, {kt}, {n - 1}; frame {kt}: {c['corners']} corners, "
+        f"{c['candidates']} candidates, {c['ms']:.5f} ms vs twin {c['plain_ms']:.5f} ms, "
+        f"bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']})")
+    return dict(launches=launches, shapes=shapes, n=n, ate=ate, fps=n / sec, medians=med,
+                step_launches=sum(kl.values()), step_device_ms=dev_ms, step_ms=step_ms)
+
+
 def _shape_key(name, call):
     """The wrapper's by_shape key of a timed call."""
     if name == "fast_nms":
-        return tuple(call["shape"])
+        return tuple(call["shape"]) + (call["threshold"],)
     if name == "lk_pyramid":
         return (call["B"], call["P"], call["n_first"])
     return (call["F"], call["m"], call["k"])
@@ -795,8 +1060,13 @@ def main():
     single = phase_slice(cfg, frames, init, gt, n, dev)
     batch = phase_batch(cfg, dev, single)
     _, suite_launches = phase_suite(cfg, dev)
+    with tempfile.TemporaryDirectory(prefix="vio_euroc_") as root:
+        cli_res = phase_cli(cfg, dev, root)
+        eskf = phase_eskf(cfg, dev, root, entries[0])
     paths = {"slice": (single["launches"], single["shapes"]),
-             "batch": (batch["launches"], batch["shapes"]), **suite_launches}
+             "batch": (batch["launches"], batch["shapes"]), **suite_launches,
+             **{p: (r["launches"], r["shapes"]) for p, r in cli_res["runs"].items()},
+             "eskf": (eskf["launches"], eskf["shapes"])}
     for e in entries:
         name = e["name"]
         e["launches"] = single["launches"][name]

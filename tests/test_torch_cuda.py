@@ -20,6 +20,7 @@ from scipy.ndimage import gaussian_filter, map_coordinates
 from vio_msckf_torch.config import euroc_config
 from vio_msckf_torch.data.render import render_sequence
 from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
+from vio_msckf_torch.eskf import EskfVio
 from vio_msckf_torch.ops import fast, klt, pyramid, spd
 
 
@@ -101,6 +102,27 @@ def _check_fast(cuda):
                                                       int((out[b] != want[b]).sum()))
                 if thr == 15.0 and batch.shape[1:] == (480, 752):
                     assert int((out[b] > 0).sum()) > 100
+
+
+def _check_fast_eskf(cuda):
+    # The ESKF's call: both rectified views of a stereo frame (bilinear
+    # warps) as one (2, 480, 752) stack at threshold 20, bit for bit, in
+    # one launch.
+    cfg = euroc_config()
+    seq = simulate_sequence(cfg, SimConfig(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5),
+                                           yaw_rate=0.2, wobble_amp=0.1))
+    _, _, first = bundle_frames(seq, cfg)
+    k = first + 40
+    cam0, cam1 = render_sequence(cfg, seq["gt_R_i_w"][k:k + 1].transpose(0, 2, 1),
+                                 seq["gt_p"][k:k + 1], radius=14.0, seed=7, device=cuda)
+    vio = EskfVio(cfg, device=cuda)
+    rect = vio.rectify(cam0[0], cam1[0]).contiguous()
+    before = _launches(fast.fast_nms)
+    out = fast.fast_nms(rect, vio.eskf.fast_threshold)
+    assert _launches(fast.fast_nms) == before + 1
+    want = fast.fast_score_map(rect, vio.eskf.fast_threshold)
+    assert torch.equal(out, want), int((out != want).sum())
+    assert int((out > 0).sum()) > 200
 
 
 def _lk_close(got, want, p95_max=2e-2, agree_min=0.99):
@@ -224,6 +246,7 @@ def _check_spd(cuda, F, m, atol, rtol, n_active=None, lead=None):
 def test_kernels_match_twins(cuda):
     # One test item: see tests/test_torch_slice.py on xdist's file order.
     _check_fast(cuda)
+    _check_fast_eskf(cuda)
     _check_lk(cuda, 1)
     _check_lk(cuda, 4)
     _check_lk_border(cuda)

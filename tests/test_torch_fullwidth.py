@@ -84,3 +84,46 @@ def test_engine_matches_jax_at_full_width(world):
     np.testing.assert_allclose(tts.cam0_pts.numpy(), jts.cam0_pts, atol=1e-3)
     np.testing.assert_allclose(tts.cam1_pts.numpy(), jts.cam1_pts, atol=1e-3)
     print(f"poses: max |port - jax| {dp.max():.3g} m over {n} frames")
+
+
+ESKF_FRAMES = 20
+
+
+@pytest.mark.slow
+def test_eskf_matches_jax_at_full_width():
+    # The ESKF pipeline at euroc_config() with the default EskfConfig (8 x 8
+    # x 8 = 512 keypoints, FAST threshold 20) on the JAX renderer's frames
+    # of the bench workload: poses within 1e-4 m at every frame, identical
+    # match and inlier counts.
+    from vio_msckf_tpu.eskf import EskfVio as JEskfVio
+    from vio_msckf_torch.eskf import EskfVio as TEskfVio
+
+    cfg = j_euroc_config()
+    seq = simulate_sequence(cfg, SimConfig(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5),
+                                           yaw_rate=0.2, wobble_amp=0.1))
+    frames, _, first = bundle_frames(seq, cfg)
+    n = ESKF_FRAMES
+    R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
+    j0, j1 = (np.array(x) for x in jrender(cfg, R, seq["gt_p"][first:first + n], radius=14.0,
+                                           seed=7, chunk=10))
+    imu = {k: frames[k][:n] for k in IMU_KEYS}
+    acc0 = imu["imu_acc"][1][imu["imu_valid"][1]][0]
+    jv, tv = JEskfVio(cfg), TEskfVio(t_euroc_config(), device="cpu")
+    jc, tc = jv.init(acc0), tv.init(acc0)
+    jstep = jax.jit(jv.step)
+    jp, tp, counts = [], [], []
+    for k in range(n):
+        frame = dict(cam0_img=j0[k], cam1_img=j1[k], **{key: v[k] for key, v in imu.items()})
+        jc, jo = jstep(jc, {key: jnp.asarray(v) for key, v in frame.items()})
+        tc, to = tv.step(tc, {key: torch.as_tensor(v) for key, v in frame.items()})
+        jp.append(np.asarray(jo["p"]))
+        tp.append(to["p"].numpy())
+        counts.append(((int(jo["n_matches"]), int(jo["n_inliers"])),
+                       (int(to["n_matches"]), int(to["n_inliers"]))))
+    assert all(a == b for a, b in counts), counts
+    assert min(a[0] for a, _ in counts[1:]) >= 50
+    dp = np.abs(np.stack(tp) - np.stack(jp)).max(axis=1)
+    bad = np.flatnonzero(dp > 1e-4)
+    assert bad.size == 0, f"ESKF poses apart from frame {bad[0]} on (max {dp.max():.3g} m)"
+    print(f"\nESKF at full width: poses max |port - jax| {dp.max():.3g} m over {n} frames; "
+          f"matches/inliers per frame {[a for a, _ in counts]}")

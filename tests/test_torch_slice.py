@@ -24,14 +24,19 @@ from vio_msckf_tpu import config as jconfig
 from vio_msckf_tpu.data.render import render_sequence as jrender
 from vio_msckf_tpu.data.simulator import SimConfig, simulate_sequence, bundle_frames
 from vio_msckf_tpu.engine import VIOEngine as JEngine
+from vio_msckf_torch import cli as tcli
 from vio_msckf_torch import config as tconfig
 from vio_msckf_torch import convert
 from vio_msckf_torch.data import render as trender_mod
 from vio_msckf_torch.data.render import render_sequence as trender
+from vio_msckf_torch.data import synth_euroc as tsynth
 from vio_msckf_torch.engine import VIOEngine as TEngine
+from vio_msckf_torch.eskf import EskfVio as TEskfVio
+from vio_msckf_torch.eskf import filter as teskf_filter
 from vio_msckf_torch.filter import state as tstate
 from vio_msckf_torch.filter.msckf import MSCKF as TMSCKF
 from vio_msckf_torch.frontend.tracker import StereoTracker
+from vio_msckf_torch.ops import rectify as trectify
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "vio_msckf_torch"
@@ -147,8 +152,14 @@ def _check_port_never_imports_jax():
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in FORBIDDEN, f"{f.name} imports {mod}"
-    # Every module imports in a process where none of them can be imported.
-    mods = [".".join(f.relative_to(REPO).with_suffix("").parts) for f in files]
+    # Every module imports in a process where none of them can be imported
+    # (__main__ is read above but not imported: importing it runs the CLI).
+    mods = [".".join(f.relative_to(REPO).with_suffix("").parts) for f in files
+            if f.name != "__main__.py"]
+    for m in ("cli", "viewer", "eskf.pipeline", "eskf.filter", "ops.orb", "ops.rectify",
+              "runtime.native_loader", "data.euroc", "data.png", "data.synth_euroc",
+              "utils.checkpoint", "utils.logging"):
+        assert f"vio_msckf_torch.{m}" in mods, m
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "".join(f"import {m.removesuffix('.__init__')}\n" for m in mods)
@@ -166,13 +177,20 @@ def _check_entry_points_default_to_cuda():
     entry_points = (TEngine.__init__, TMSCKF.__init__, StereoTracker.__init__,
                     tstate.make_params, tstate.init_feature_map,
                     trender_mod.make_texture_basis, trender_mod.pixel_ray_lut,
-                    trender_mod.render_sequence, convert.from_numpy_tree)
+                    trender_mod.render_sequence, convert.from_numpy_tree,
+                    TEskfVio.__init__, teskf_filter.init_state, teskf_filter.init_covariance,
+                    trectify.rectify_map, tsynth.write_synthetic_euroc)
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default!r}"
+    assert tcli.build_parser().parse_args(["--demo"]).device == "cuda"
     if not torch.cuda.is_available():
-        with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda|NVIDIA"):
-            TEngine(tconfig.euroc_config())
+        for build in (lambda: TEngine(tconfig.euroc_config()),
+                      lambda: TEskfVio(tconfig.euroc_config()),
+                      lambda: tcli.main(["--demo"]),
+                      lambda: tcli.main(["--path", "no-such-dir", "--pipeline", "eskf"])):
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda|NVIDIA"):
+                build()
 
 
 def test_slice_matches_jax(workload):

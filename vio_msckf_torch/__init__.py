@@ -13,16 +13,23 @@ reference the port is tested against. The layout mirrors it:
   filter/    the MSCKF estimator core
   frontend/  the stereo feature tracker
   engine.py  front-end + filter, one frame per `step`
-  data/      the trajectory simulator, IMU bundling and the renderer
-  utils/     trajectory metrics (ATE, RPE)
+  eskf/      the second pipeline: rectified ORB stereo + an 18-state ESKF
+             (ops/rectify.py, ops/orb.py)
+  data/      the trajectory simulator, IMU bundling, the renderer, the
+             EuRoC reader and writer, a numpy + zlib PNG codec
+  runtime/   the native PNG prefetch ring (C++, built at first use)
+  utils/     trajectory metrics (ATE, RPE), logging, checkpoints
+  cli.py     `python -m vio_msckf_torch`: EuRoC --path, --demo, --pipeline
+             eskf, TUM output, checkpoints (viewer.py: the live viewer)
   convert.py state conversion from and to the JAX package's pytrees
 
 Every kernel wrapper dispatches on the device of its input: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain PyTorch twin
 beside it. The entry points that build state (VIOEngine, StereoTracker,
-MSCKF, make_params, init_feature_map, the renderer, from_numpy_tree) put
-it on "cuda" unless the caller passes another device; without a CUDA
-device they raise PyTorch's own error rather than fall back to the CPU.
+MSCKF, make_params, init_feature_map, the renderer, from_numpy_tree,
+EskfVio, the CLI's --device) put it on "cuda" unless the caller passes
+another device; without a CUDA device they raise PyTorch's own error
+rather than fall back to the CPU.
 No module imports jax or the JAX package.
 """
 

@@ -90,7 +90,8 @@ def fast_nms(img, threshold):
     """FAST-9 score + NMS maps of a (B, H, W) f32 stack of images.
 
     CUDA tensor: the hand kernel (csrc/fast_nms.cu), one launch for the
-    whole stack, counted per call shape in `fast_nms.by_shape`. CPU tensor:
+    whole stack, counted per call shape and threshold in `fast_nms.by_shape`
+    (key (B, H, W, threshold)). CPU tensor:
     `fast_score_map`."""
     if not img.is_cuda:
         return fast_score_map(img, threshold)
@@ -105,11 +106,11 @@ def fast_nms(img, threshold):
         kernels.ptr(img), kernels.ptr(out), B, H, W, float(threshold),
         kernels.stream_ptr(img))
     kernels.check(code, "vio_fast_nms")
-    fast_nms.by_shape[(B, H, W)] += 1
+    fast_nms.by_shape[(B, H, W, float(threshold))] += 1
     return out
 
 
-fast_nms.by_shape = collections.Counter()  # launches per call shape
+fast_nms.by_shape = collections.Counter()  # launches per call shape and threshold
 
 
 def detect_grid_features(score, mask, grid_row, grid_col, per_cell):

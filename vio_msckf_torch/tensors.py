@@ -39,6 +39,11 @@ def unsqueeze_record(rec):
     return _map_fields(rec, lambda t: t[None])
 
 
+def clone_record(rec):
+    """A copy of a record whose tensors share no storage with it."""
+    return _map_fields(rec, torch.clone)
+
+
 def index_record(rec, b):
     """Sequence b of a batched record (views, no copy)."""
     return _map_fields(rec, lambda t: t[b])

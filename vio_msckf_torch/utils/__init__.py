@@ -1,1 +1,1 @@
-"""Numpy utilities of the port: trajectory metrics."""
+"""Utilities of the port: trajectory metrics, logging, checkpoints."""
