@@ -37,7 +37,22 @@ Phases, one line each; any failure raises and exits nonzero:
                 ATE/RPE each (0.5 m bound), beside the JAX package's TPU v5e
                 numbers from SUITE_r05.json (the reference's, not the
                 port's).
-  8. cli      - the user's entry point, `python -m vio_msckf_torch --path`
+  8. parallel - scale-out (vio_msckf_torch/parallel/): NCCL's answer to two
+                ranks on the one card (it refuses them; on two or more cards
+                both must run); the engine in 4 gloo
+                ranks sharing the card as replica 2 x block 2 (the suite's
+                pair, one sequence per replica, its 64 frames) against the
+                suite's unsharded trajectories (5e-3 m, the reference's
+                bound), block peers against each other, ATE per sequence;
+                the filter alone in 8 gloo ranks as 2 x 4 (two butterfly
+                rounds; simulated tracks, seeds 1 and 2, 30 frames) against
+                the unsharded filter on the card (1e-4 m); one NCCL rank at world
+                size 1 through the block all-gather over the slice's first
+                16 frames (1e-4 m, 0 host syncs); dryrun_multichip(4) under
+                gloo. Backend, staged host copies and ms per step of each
+                run; ranks sharing one card give no scaling number. The
+                ranks' launches are merged per call shape.
+  9. cli      - the user's entry point, `python -m vio_msckf_torch --path`
                 (vio_msckf_torch.cli.main): the bench sequence written as
                 an EuRoC mav0/ tree by the port's writer, then run chunked
                 over every frame (dataset_fps, aligned ATE as the CLI
@@ -45,8 +60,10 @@ Phases, one line each; any failure raises and exits nonzero:
                 first 110 frames (their TUM trajectories must equal the
                 chunked run's), and checkpointed at frame 64 and resumed
                 (the final pose must equal the uninterrupted run's); the
-                PNG decoder that ran.
-  9. eskf     - the ESKF pipeline (cli.eskf_euroc, the --pipeline eskf
+                PNG decoder that ran; the first 32 frames re-encoded by PIL
+                (adaptive filters, as the JAX package writes its trees):
+                chunked dataset_fps, the same TUM lines.
+ 10. eskf     - the ESKF pipeline (cli.eskf_euroc, the --pipeline eskf
                 --path flow below its plots: the card's machine has no
                 matplotlib) at euroc_config() with the default EskfConfig
                 (K = 512) on the first 110 frames of the same tree: aligned
@@ -81,10 +98,13 @@ import json
 import logging
 import math
 import os
+import shutil
+import struct
 import subprocess
 import tempfile
 import time
 import warnings
+import zlib
 
 import numpy as np
 
@@ -96,6 +116,7 @@ BATCH = 4                      # bench.py --suite: the 4-sequence batch
 CLI_CHUNK = 32                 # the CLI's default --chunk
 CLI_PARTIAL = 110              # frames of the --preload and per-frame runs
 CKPT_FRAME = 64                # where the interrupted CLI run checkpoints
+CLI_PIL = 32                   # frames of the run on PIL-encoded PNGs
 # The ESKF's bound is the JAX package's own for its --path flow
 # (tests/test_euroc_pipeline.py:112); the loosely coupled filter drifts more
 # than the MSCKF: over all 220 frames the JAX package's ESKF reaches
@@ -121,6 +142,24 @@ ESKF_FRAMES = 110
 # printed beside the port's numbers as an anchor, not as the port's).
 TPU_ANCHOR_ATE = {"fast motion": 0.1015, "hostile": 0.1767, "30 clones": 0.0535,
                   "4-sequence batch": 0.0489}
+
+# [parallel]: the engine over a replica x block mesh of gloo ranks on the
+# one card (the suite's B = 2 pair, one sequence per replica, SUITE_DEPTH
+# frames), the filter alone over 2 x 4 ranks (two butterfly rounds; the
+# simulated tracks of seeds 1 and 2, tests/test_parallel.py:46-77), and one
+# NCCL rank at world size 1 over the slice's first NCCL_FRAMES frames. The
+# sharded engine's bound is the reference's own (tests/test_parallel.py:77,142).
+PAR_ENGINE_MESH = (2, 2)
+PAR_FILTER_MESH = (2, 4)
+PAR_FILTER_FRAMES = 30
+PAR_SEEDS = (1, 2)
+NCCL_FRAMES = 16
+PAR_BOUND_M = 5e-3
+# The filter alone against the unsharded filter on the card: f32 roundoff
+# apart (1.1e-6 m on an NVIDIA H100 80GB HBM3 at 700 W), so held far
+# tighter than the reference's bound.
+PAR_FILTER_BOUND_M = 1e-4
+PAR_TIMEOUT_S = 300
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -526,7 +565,12 @@ SPD_CALLS = (("slice", 1, 128, 80, 141, 2e-3, 2e-3), ("slice", 1, 160, 8, 141, 1
              ("batch", BATCH, 160, 8, 141, 1e-4, 1e-3),
              ("suite B=2", SUITE_B, 128, 80, 141, 2e-3, 2e-3),
              ("suite B=2", SUITE_B, 160, 8, 141, 1e-4, 1e-3),
-             ("30 clones", 1, 128, 120, 201, 2e-3, 2e-3))
+             ("30 clones", 1, 128, 120, 201, 2e-3, 2e-3),
+             # One sequence per rank with the features split over block
+             # ranks: the lost and prune paths at F = 128/nb and 160/nb,
+             # block = 2 (the sharded engine) and block = 4 (the filter).
+             ("parallel", 1, 64, 80, 141, 2e-3, 2e-3), ("parallel", 1, 80, 8, 141, 1e-4, 1e-3),
+             ("parallel", 1, 32, 80, 141, 2e-3, 2e-3), ("parallel", 1, 40, 8, 141, 1e-4, 1e-3))
 
 
 def check_spd(dev):
@@ -579,19 +623,16 @@ def check_spd(dev):
                 **summed([c for c in calls if c["path"] == "slice"]))
 
 
-COUNTERS = {"fast_nms": ("vio_msckf_torch.ops.fast", "fast_nms"),
-            "lk_pyramid": ("vio_msckf_torch.ops.klt", "track_pyramid"),
-            "spd_gj": ("vio_msckf_torch.ops.spd", "spd_solve")}
+KERNELS = ("fast_nms", "lk_pyramid", "spd_gj")
 
 
 def _counters():
-    import importlib
+    from vio_msckf_torch import kernels
 
-    return {name: getattr(importlib.import_module(mod), fn)
-            for name, (mod, fn) in COUNTERS.items()}
+    return kernels.counters()
 
 
-def counted(path, run, kernels=tuple(COUNTERS)):
+def counted(path, run, kernels=KERNELS):
     """Run one path with every kernel counter set to 0 just before and read
     just after; fails unless every kernel of the path (`kernels`) launched
     in it. Returns (run's result, {kernel: launches}, {kernel: {call shape:
@@ -805,6 +846,7 @@ def phase_suite(cfg, dev):
             f"package's)")
     log(f"[suite] fast motion + hostile as one B=2 batch: {n} frames in {sec:.2f} s, "
         f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    out["pair"] = dict(names=names, est=est, gts=gts, n=n)
     suite_launches = {"suite B=2": (launches, shapes)}
     # Two different sequences in one batch: each member against the same
     # sequence run alone, so that a member reading the other's rows shows.
@@ -837,6 +879,178 @@ def phase_suite(cfg, dev):
     return out, suite_launches
 
 
+def rank_reports(out_dir, nprocs):
+    """Each rank's positions by batch row and its report (worker.py)."""
+    held, reports = {}, []
+    for r in range(nprocs):
+        z = np.load(os.path.join(out_dir, f"rank{r}.npz"))
+        for b, p in zip(z["rows"], z["p"]):
+            held.setdefault(int(b), []).append(p)
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return held, reports
+
+
+def merge_launches(reports, shapes):
+    """Add the ranks' launches per kernel and call shape into `shapes`."""
+    for rep in reports:
+        for name, pairs in rep["launches"].items():
+            for shape, n in pairs:
+                shapes[name][tuple(shape)] = shapes[name].get(tuple(shape), 0) + n
+
+
+def run_ranks(label, nprocs, args, backend="gloo"):
+    """The worker on nprocs ranks (gloo: all sharing the card): merged
+    rows and the reports; fails when block peers disagree."""
+    from vio_msckf_torch.parallel.distributed import Ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vio_ranks_") as d:
+        Ranks("vio_msckf_torch.parallel.worker", nprocs,
+              ["--out", d, "--device", "cuda", "--backend", backend, *args]).wait(PAR_TIMEOUT_S)
+        held, reports = rank_reports(d, nprocs)
+    sec = time.perf_counter() - t0
+    peer_gap = max(float(np.abs(p - ps[0]).max()) for ps in held.values() for p in ps)
+    merged = np.stack([held[b][0] for b in sorted(held)])
+    staged = {k: max(r["staged_per_step"].get(k, 0) for r in reports)
+              for k in ("to_host", "to_device")}
+    ms = [r["step_ms"] for r in reports]
+    log(f"[parallel] {label}: {nprocs} ranks, backend {reports[0]['backend']} on "
+        f"{reports[0]['device']}, {sec:.1f} s with start-up; {min(ms):.1f}-{max(ms):.1f} ms a "
+        f"step per rank ({'ranks sharing one H100' if backend == 'gloo' else 'ranks'}: "
+        f"not a scaling number); host copies staged "
+        f"for gloo per step and rank: {staged['to_host']:g} to the host, "
+        f"{staged['to_device']:g} back; block peers agree within {peer_gap:.3g} m")
+    if not peer_gap <= 1e-6:
+        raise AssertionError(f"{label}: block peers differ by {peer_gap} m")
+    return merged, reports
+
+
+def phase_parallel(cfg, dev, suite, single, frames):
+    """Scale-out: the sharded engine and filter in gloo ranks on the card,
+    one NCCL rank at world size 1, and the dry run."""
+    import torch
+    import torch.distributed as dist
+    from vio_msckf_torch import comm
+    from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
+    from vio_msckf_torch.filter.msckf import MSCKF
+    from vio_msckf_torch.parallel import make_mesh, make_multichip_engine_step
+    from vio_msckf_torch.parallel.distributed import free_port
+    from vio_msckf_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    shapes = {k: {} for k in KERNELS}
+    pair = suite["pair"]
+    n = pair["n"]
+
+    # 0. Why the ranks below share the card through gloo: NCCL refuses two
+    # ranks on one GPU. That refusal, on one card, is the only failure
+    # accepted; with two or more cards each rank gets its own and both must
+    # run, their block peers agreeing.
+    filter_seqs = [dict(sim=dict(duration=6.0, seed=s)) for s in PAR_SEEDS]
+    t0 = time.perf_counter()
+    try:
+        run_ranks("NCCL 1 x 2", 2, ["--replica", 1, "--block", 2, "--frames", 2,
+                                    "--sequences", json.dumps(filter_seqs[:1])], "nccl")
+        nccl_two = "both ranks ran"
+    except RuntimeError as e:
+        said = [ln.strip() for ln in str(e).splitlines() if "Duplicate GPU" in ln]
+        if torch.cuda.device_count() > 1 or not said:
+            raise
+        nccl_two = "refused: " + said[0]
+    log(f"[parallel] NCCL with 2 ranks on {torch.cuda.device_count()} card(s): {nccl_two} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 1. The suite's B = 2 pair, one sequence per replica, block = 2.
+    nr, nb = PAR_ENGINE_MESH
+    specs = [dict(sim=dict(SIM, **FAST_MOTION)), dict(sim=SIM, hostile=True)]
+    merged, reports = run_ranks(
+        f"engine {nr} x {nb}", nr * nb,
+        ["--replica", nr, "--block", nb, "--mode", "engine", "--frames", n,
+         "--sequences", json.dumps(specs)])
+    merge_launches(reports, shapes)
+    for b, name in enumerate(pair["names"]):
+        gap = float(np.abs(merged[b] - pair["est"][b]).max())
+        ate, rpe = trajectory_metrics(f"parallel {name}", merged[b], pair["gts"][b], n)
+        log(f"[parallel] engine, {name}: ATE {ate:.4f} m, RPE {rpe:.4f} m over {n} frames; "
+            f"max per-frame position gap to the suite's unsharded B=2 run {gap:.3g} m "
+            f"(bound {PAR_BOUND_M} m)")
+        if not gap <= PAR_BOUND_M:
+            raise AssertionError(f"sharded engine, {name}: {gap} m from the unsharded run")
+
+    # 2. The filter alone, block = 4: two butterfly rounds.
+    nr, nb = PAR_FILTER_MESH
+    merged, reports = run_ranks(
+        f"filter {nr} x {nb}", nr * nb,
+        ["--replica", nr, "--block", nb, "--mode", "filter", "--frames", PAR_FILTER_FRAMES,
+         "--sequences", json.dumps(filter_seqs)])
+    merge_launches(reports, shapes)
+    seqs = [bundle_frames(simulate_sequence(cfg, SimConfig(duration=6.0, seed=s)), cfg)
+            for s in PAR_SEEDS]
+    T = merged.shape[1]
+    feed = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid", "feat_ids", "feat_obs", "feat_valid")
+    kf = MSCKF(cfg, dev)
+    carry = kf.init_batch([init for _, init, _ in seqs])
+    ps = []
+    for k in range(T):
+        carry, out = kf.step(carry, {key: torch.as_tensor(np.stack([f[key][k] for f, _, _ in seqs]),
+                                                          device=dev) for key in feed})
+        ps.append(out.p)
+    ref = torch.stack(ps, dim=1).cpu().numpy()
+    gap = float(np.abs(merged - ref).max())
+    log(f"[parallel] filter {nr} x {nb}, seeds {PAR_SEEDS}, {T} frames: max position gap to "
+        f"the unsharded filter on the card {gap:.3g} m (bound {PAR_FILTER_BOUND_M} m)")
+    if not (np.isfinite(merged).all() and gap <= PAR_FILTER_BOUND_M):
+        raise AssertionError(f"sharded filter: {gap} m from the unsharded filter")
+    for k in KERNELS:
+        if not sum(shapes[k].values()) > 0:
+            raise AssertionError(f"kernel {k} was never launched on the parallel path")
+
+    # 3. One NCCL rank, a block group of one: the all-gather path.
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        step, eng = make_multichip_engine_step(cfg, mesh, device=dev)
+        sl = {k: v[:NCCL_FRAMES][None] for k, v in frames.items()}
+
+        def run():
+            carry, ps = eng.init_batch([single["init"]]), []
+            for k in range(NCCL_FRAMES):
+                carry, out = step(carry, {key: v[:, k] for key, v in sl.items()})
+                ps.append(out.p)
+            return carry, torch.stack(ps, dim=1)
+
+        comm.STAGED.clear()
+        t0 = time.perf_counter()
+        (carry, p), launches, nccl_shapes = counted("parallel nccl", run)
+        sec = time.perf_counter() - t0
+        gap = float(np.abs(p[0].cpu().numpy() - single["est"][:NCCL_FRAMES]).max())
+        frame = {key: v[:, NCCL_FRAMES // 2] for key, v in sl.items()}
+        syncs = host_syncs(lambda: step(carry, frame))
+        log(f"[parallel] NCCL, world size 1, block group of one: {NCCL_FRAMES} frames in "
+            f"{sec:.2f} s ({sec / NCCL_FRAMES * 1e3:.1f} ms a step with the first), max gap to "
+            f"the slice {gap:.3g} m (bound 1e-4 m); host syncs in one warm sharded step: "
+            f"{len(syncs)}; host copies staged: {sum(comm.STAGED.values())}; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        if syncs or not gap <= 1e-4:
+            raise AssertionError(f"NCCL world 1: {len(syncs)} host syncs, {gap} m from the slice")
+    finally:
+        dist.destroy_process_group()
+
+    # 4. The dry run: one engine step at EuRoC shapes over 4 gloo ranks.
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dry = dryrun_multichip(4, device="cuda", backend="gloo", timeout=PAR_TIMEOUT_S)
+    log(f"[parallel] dryrun_multichip(4) under gloo: replica 2 x block 2, batch 4, pose "
+        f"finite, {time.perf_counter() - t0:.1f} s")
+    log(f"[parallel] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"parallel": ({k: sum(v.values()) for k, v in shapes.items()}, shapes),
+            "parallel nccl": (launches, nccl_shapes),
+            "parallel dryrun": ({k: sum(dry.get(k, {}).values()) for k in KERNELS},
+                                {k: dry.get(k, {}) for k in KERNELS})}
+
+
 def run_cli(argv):
     """vio_msckf_torch.cli.main(argv), its standard output captured; returns
     the numbers it printed ({"dataset_fps": x, ...})."""
@@ -864,10 +1078,33 @@ def tum_positions(lines):
     return np.array([[float(v) for v in ln.split()[1:4]] for ln in lines])
 
 
+PNG_FILTERS = ("None", "Sub", "Up", "Average", "Paeth")
+
+
+def png_row_filters(path):
+    """How many rows of an 8-bit grayscale PNG use each row filter."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, width = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, payload = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            width = struct.unpack(">I", payload[:4])[0]
+        elif kind == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    kinds = zlib.decompress(idat)[::width + 1]
+    return {name: kinds.count(i) for i, name in enumerate(PNG_FILTERS) if kinds.count(i)}
+
+
 def phase_cli(cfg, dev, root):
-    """The EuRoC entry point, in its three modes and through a checkpoint."""
+    """The EuRoC entry point, in its three modes and through a checkpoint,
+    and on frames PIL encoded."""
+    import PIL
+    from PIL import Image
     import torch
-    from vio_msckf_torch.data.euroc import EuRoCSequence
+    from vio_msckf_torch.data.euroc import EuRoCSequence, bundle_euroc_frames
     from vio_msckf_torch.data.simulator import SimConfig
     from vio_msckf_torch.data.synth_euroc import write_synthetic_euroc
     from vio_msckf_torch.engine import VIOEngine
@@ -942,9 +1179,33 @@ def phase_cli(cfg, dev, root):
         f"uninterrupted run's")
     if step_full != n or step_res != n or not gap <= 1e-6:
         raise AssertionError(f"resume: steps {step_full}/{step_res}, final pose gap {gap} m")
+
+    # The first CLI_PIL frames after the IMU initialization re-encoded by
+    # PIL, as the JAX package's writer writes its trees
+    # (vio_msckf_tpu/data/synth_euroc.py:68-71): PIL's adaptive row filters
+    # put Paeth and Average rows in, which libpng's encoder writes too.
+    pil_root = os.path.join(root, "pil")
+    shutil.copytree(os.path.join(root, "mav0"), os.path.join(pil_root, "mav0"))
+    _, _, first, _ = bundle_euroc_frames(seq, cfg)
+    pil_seq = EuRoCSequence(pil_root, 0.0)
+    for cam in (0, 1):
+        for path in pil_seq.image_paths(0, first + CLI_PIL, cam):
+            with Image.open(path) as im:
+                pixels = np.asarray(im)
+            Image.fromarray(pixels).save(path)
+    filters = png_row_filters(pil_seq.image_paths(first + CLI_PIL // 2, 1, 0)[0])
+    pil = mode("cli PIL", ["--path", pil_root, "--max-frames", str(CLI_PIL),
+                           "--out", f("pil.txt")])
+    same = tum_lines(f("pil.txt")) == lines[:CLI_PIL]
+    log(f"[cli] {CLI_PIL} frames re-encoded by PIL {PIL.__version__} (the rows of frame "
+        f"{CLI_PIL // 2} after the initialization: " + ", ".join(f"{v} {k}" for k, v in filters.items()) + f"), decoder "
+        f"{native_loader.decoder_name().split(';')[0]}: chunked dataset_fps {pil['dataset_fps']:.2f}; "
+        f"TUM lines {'identical to' if same else 'differ from'} the chunked run's")
+    if not same:
+        raise AssertionError("cli: the PIL-encoded frames gave another trajectory")
     torch.cuda.synchronize()
     return dict(runs=runs, n=n, ate=ate, rpe=rpe, fps=chunked["dataset_fps"], decoder=decoder,
-                gaps=gaps, resume_gap=gap)
+                gaps=gaps, resume_gap=gap, pil_fps=pil["dataset_fps"])
 
 
 def phase_eskf(cfg, dev, root, fast_entry):
@@ -1059,12 +1320,13 @@ def main():
     entries = [check_fast(frames, n, dev), check_lk(cfg, frames, dev), check_spd(dev)]
     single = phase_slice(cfg, frames, init, gt, n, dev)
     batch = phase_batch(cfg, dev, single)
-    _, suite_launches = phase_suite(cfg, dev)
+    suite, suite_launches = phase_suite(cfg, dev)
+    par_launches = phase_parallel(cfg, dev, suite, dict(single, init=init), frames)
     with tempfile.TemporaryDirectory(prefix="vio_euroc_") as root:
         cli_res = phase_cli(cfg, dev, root)
         eskf = phase_eskf(cfg, dev, root, entries[0])
     paths = {"slice": (single["launches"], single["shapes"]),
-             "batch": (batch["launches"], batch["shapes"]), **suite_launches,
+             "batch": (batch["launches"], batch["shapes"]), **suite_launches, **par_launches,
              **{p: (r["launches"], r["shapes"]) for p, r in cli_res["runs"].items()},
              "eskf": (eskf["launches"], eskf["shapes"])}
     for e in entries:

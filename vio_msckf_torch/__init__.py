@@ -18,6 +18,9 @@ reference the port is tested against. The layout mirrors it:
   data/      the trajectory simulator, IMU bundling, the renderer, the
              EuRoC reader and writer, a numpy + zlib PNG codec
   runtime/   the native PNG prefetch ring (C++, built at first use)
+  parallel/  scale-out over torch.distributed ranks: sequence replicas x
+             feature blocks, the butterfly TSQR update (comm.py: the
+             collectives), the rank entry point and the multi-rank dry run
   utils/     trajectory metrics (ATE, RPE), logging, checkpoints
   cli.py     `python -m vio_msckf_torch`: EuRoC --path, --demo, --pipeline
              eskf, TUM output, checkpoints (viewer.py: the live viewer)

@@ -4,8 +4,8 @@
 Covers the reference's data layer (MSCKF/dataset.py:12-221): ground-truth /
 IMU CSV parsing, timestamp-sorted stereo PNG listing with the 0.01 s sync
 check, and start-time offsetting. Images are decoded on demand through the
-native loader (runtime/euroc_loader.cc) where it builds, else through
-data/png.py.
+native loader (runtime/euroc_loader.cc) where it builds, else with PIL, as
+the reference does, else through data/png.py.
 """
 
 import os
@@ -97,13 +97,12 @@ class EuRoCSequence:
 
 def load_png_gray(path):
     """Decode one grayscale PNG: the native loader where it builds, else
-    data/png.py."""
+    PIL, else data/png.py (runtime/native_loader.py:decoder_name)."""
     from vio_msckf_torch.runtime import native_loader
-    from vio_msckf_torch.data.png import decode_png_gray
 
     if native_loader.available():
         return native_loader.load_png_gray(path)
-    return decode_png_gray(path)
+    return native_loader.decode_fallback(path)
 
 
 def bundle_euroc_frames(seq: EuRoCSequence, config, max_frames=None):

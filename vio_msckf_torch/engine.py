@@ -31,11 +31,14 @@ def _first(carry):
 
 
 class VIOEngine:
-    def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32):
+    def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32,
+                 block_group=None):
+        """`block_group`: the filter's feature-block process group
+        (MSCKF); the tracker runs whole on every rank of it."""
         self.config = config
         self.device = torch.device(device)
         self.tracker = StereoTracker(config, self.device)
-        self.kf = MSCKF(config, self.device, dtype)
+        self.kf = MSCKF(config, self.device, dtype, block_group)
 
     # -- B sequences ---------------------------------------------------------
 

@@ -81,11 +81,13 @@ def _from_two_vectors_np(v0, v1):
     return np.concatenate([-q[:3], q[3:]])  # Hamilton -> JPL conjugate
 
 
-def remove_lost_features(state, fmap, params):
+def remove_lost_features(state, fmap, params, group=None):
     """Triangulate and update with the features that lost track this
     frame, then drop them from the map. Each sequence's candidates are
     compacted into C = max_lost_candidates lanes; overflow beyond C loses
-    its update information (it is still cleared) and is counted (B,)."""
+    its update information (it is still cleared) and is counted (B,).
+    With a block process `group`, triangulation, gating and the update
+    are sharded over its ranks."""
     cfg = params.config
     B, F = fmap.valid.shape
     N = state.clone_q.shape[1]
@@ -108,7 +110,7 @@ def remove_lost_features(state, fmap, params):
 
     positions, tri_ok = triangulate_all(
         obs_c, ov_c, state.clone_q, state.clone_p,
-        params.R_cam0_cam1, params.t_cam0_cam1, cfg.triangulation)
+        params.R_cam0_cam1, params.t_cam0_cam1, cfg.triangulation, group=group)
     motion_ok = check_motion_all(obs_c, ov_c, state.clone_q, state.clone_p,
                                  cfg.triangulation.translation_threshold)
     newly_ok = ~init_c & motion_ok & tri_ok
@@ -120,8 +122,9 @@ def remove_lost_features(state, fmap, params):
     Hc, rc, _ = stack_update(
         state, params, positions=use_pos, obs=obs_c, use_masks=ov_c,
         clone_slots=slots, process_mask=process,
-        dofs=n_obs_c - 1)              # dof = #observing clones - 1
-    state = tsqr_reduce_update(state, Hc, rc, params)
+        dofs=n_obs_c - 1,              # dof = #observing clones - 1
+        group=group)
+    state = tsqr_reduce_update(state, Hc, rc, params, group=group)
     return state, clear_features(fmap, lost), overflow
 
 
@@ -191,9 +194,14 @@ class MSCKF:
         (state, fmap), out = kf.step((state, fmap), frame)   # frame (B, ...)
     """
 
-    def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32):
+    def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32,
+                 block_group=None):
         full_precision()
         self.config = config
+        # The block process group of the feature-block sharding (parallel/),
+        # the JAX package's `block_axis`: every rank of it must step the
+        # same sequences, frame for frame.
+        self.block_group = block_group
         self.device = torch.device(device)
         self.dtype = dtype
         self.params = make_params(config, self.device, dtype)
@@ -226,8 +234,9 @@ class MSCKF:
             fmap, frame["feat_ids"], frame["feat_obs"], frame["feat_valid"],
             cur_slot=state.n_clones - 1)
         state = state.replace(tracking_rate=tracking_rate.to(state.P.dtype))
-        state, fmap, lost_overflow = remove_lost_features(state, fmap, params)
-        state, fmap = maybe_prune(state, fmap, params)
+        state, fmap, lost_overflow = remove_lost_features(state, fmap, params,
+                                                          self.block_group)
+        state, fmap = maybe_prune(state, fmap, params, self.block_group)
         out = publish(state)
         state, fmap, did_reset = online_reset(state, fmap, params)
         out = out.replace(did_reset=did_reset, lost_overflow=lost_overflow)

@@ -88,8 +88,10 @@ def compact_lanes(mask, C):
     return idx[:, :C], sel_valid
 
 
-def prune_clones(state: FilterState, fmap: FeatureMap, params: MsckfParams):
-    """One pruning pass; meaningful only where the window is full."""
+def prune_clones(state: FilterState, fmap: FeatureMap, params: MsckfParams, group=None):
+    """One pruning pass; meaningful only where the window is full. With a
+    block process `group`, triangulation, gating and the update are
+    sharded over its ranks (vio_msckf_tpu/filter/pruning.py:prune_clones)."""
     cfg = params.config
     N = cfg.filter.max_cam_state_size
     dev = state.P.device
@@ -111,7 +113,7 @@ def prune_clones(state: FilterState, fmap: FeatureMap, params: MsckfParams):
     ov_c = gather_rows(fmap.obs_valid, idx) & sel_valid[..., None]
     pos_c, tri_ok_c = triangulate_all(
         obs_c, ov_c, state.clone_q, state.clone_p,
-        params.R_cam0_cam1, params.t_cam0_cam1, cfg.triangulation)
+        params.R_cam0_cam1, params.t_cam0_cam1, cfg.triangulation, group=group)
     motion_ok_c = check_motion_all(obs_c, ov_c, state.clone_q, state.clone_p,
                                    cfg.triangulation.translation_threshold)
 
@@ -137,8 +139,9 @@ def prune_clones(state: FilterState, fmap: FeatureMap, params: MsckfParams):
         clone_slots=slots2, process_mask=process,
         dofs=n_involved,               # dof = #involved clones
         max_blocks=2 * F,              # at most the 2 removed clones' blocks
+        group=group,
     )
-    state = tsqr_reduce_update(state, Hc, rc, params)
+    state = tsqr_reduce_update(state, Hc, rc, params, group=group)
 
     fmap = fmap.replace(
         position=torch.where(newly_ok[..., None], positions, fmap.position),
@@ -167,8 +170,9 @@ def prune_clones(state: FilterState, fmap: FeatureMap, params: MsckfParams):
     return state, fmap
 
 
-def maybe_prune(state: FilterState, fmap: FeatureMap, params: MsckfParams):
-    """Prune each sequence whose window is full (compute, then select)."""
+def maybe_prune(state: FilterState, fmap: FeatureMap, params: MsckfParams, group=None):
+    """Prune each sequence whose window is full (compute, then select: the
+    collectives of a sharded prune run every frame on every rank)."""
     full = state.n_clones >= params.config.filter.max_cam_state_size
-    s, f = prune_clones(state, fmap, params)
+    s, f = prune_clones(state, fmap, params, group)
     return select(full, s, state), select(full, f, fmap)

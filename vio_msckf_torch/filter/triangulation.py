@@ -16,6 +16,7 @@ run as B * C lanes of one loop, each lane with its own stopping rule.
 
 import torch
 
+from vio_msckf_torch import comm
 from vio_msckf_torch.config import TriangulationConfig
 from vio_msckf_torch.math import quat_to_rot
 from vio_msckf_torch.tensors import gather_rows
@@ -131,11 +132,22 @@ def _normal_equations(Rv, tv, zv, x, view_valid, huber_eps):
 
 
 def triangulate_all(obs, obs_valid, clone_q, clone_p, R_c0c1, t_c0c1,
-                    cfg: TriangulationConfig):
+                    cfg: TriangulationConfig, group=None):
     """LM inverse-depth solve for every feature row of every sequence.
 
     obs (B, C, N, 4), obs_valid (B, C, N), clone_q (B, N, 4), clone_p
-    (B, N, 3). Returns (p_world (B, C, 3), ok (B, C))."""
+    (B, N, 3). Returns (p_world (B, C, 3), ok (B, C)).
+
+    With a block process `group` of nb ranks, rank bi solves the lanes
+    [bi C/nb, (bi + 1) C/nb) of every sequence and (p, ok) are
+    all-gathered back to (B, C): the feature-block sharding of
+    vio_msckf_tpu/filter/triangulation.py:triangulate_all."""
+    if group is not None:
+        sl = comm.lanes(group, obs.shape[1])
+        p, ok = triangulate_all(obs[:, sl], obs_valid[:, sl], clone_q, clone_p,
+                                R_c0c1, t_c0c1, cfg)
+        both = comm.all_gather(torch.cat([p, ok[..., None].to(p.dtype)], dim=-1), group, dim=1)
+        return both[..., :3], both[..., 3] > 0.5
     B, C0, N, _ = obs.shape
     dtype, dev = obs.dtype, obs.device
     i0, iN = _first_last(obs_valid)

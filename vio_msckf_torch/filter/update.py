@@ -15,7 +15,9 @@ rule does (vio_msckf_tpu/ops/spd_pallas.py:96-114).
 """
 
 import torch
+import torch.distributed as dist
 
+from vio_msckf_torch import comm
 from vio_msckf_torch.math import quat_mul, quat_to_rot, skew, small_angle_quat
 from vio_msckf_torch.filter.state import FilterState, MsckfParams
 from vio_msckf_torch.ops.spd import spd_solve
@@ -227,11 +229,39 @@ def qr_update(state: FilterState, Hc, rc, params: MsckfParams) -> FilterState:
     return apply_correction(state, dx).replace(P=P_new)
 
 
-def tsqr_reduce_update(state: FilterState, Hc, rc, params: MsckfParams) -> FilterState:
-    """The update from one stacked buffer. The reference's sharded form
-    (a butterfly TSQR over feature-block shards) is not ported yet; the
-    unsharded form is the single QR of `qr_update`."""
-    return qr_update(state, Hc, rc, params)
+def tsqr_reduce_update(state: FilterState, Hc, rc, params: MsckfParams,
+                       group=None) -> FilterState:
+    """The update from each rank's stacked buffer. Without a group it is
+    the single QR of `qr_update`. With a block process `group` of nb ranks
+    (vio_msckf_tpu/filter/update.py:tsqr_reduce_update) each rank first
+    compresses its own buffer, Q1 R1 = Hc and z1 = Q1^T rc; then, for nb a
+    power of two above 1, log2(nb) butterfly rounds: exchange (R, z) with
+    the rank whose index differs in bit k and re-QR the (2D, D) stack, the
+    lower index first, so that both partners run the same Householder
+    sequence and block peers stay bit-identical. For another nb the (D, D)
+    triangles are all-gathered. Either way the result goes through
+    `qr_update`; row signs cancel in the gain, so every reduction gives
+    the same state up to f32 roundoff."""
+    if group is None:
+        return qr_update(state, Hc, rc, params)
+    D = state.P.shape[-1]
+    Q1, R = torch.linalg.qr(Hc)
+    z = (Q1.mT @ rc[..., None])[..., 0]
+    nb, bi = dist.get_world_size(group), dist.get_rank(group)
+    if nb > 1 and nb & (nb - 1) == 0:
+        for k in range(nb.bit_length() - 1):
+            bit = 1 << k
+            other = comm.exchange(torch.cat([R, z[:, None]], dim=1), group, bi ^ bit)
+            pair_R, pair_z = (R, other[:, :D]), (z, other[:, D])
+            if bi & bit:
+                pair_R, pair_z = pair_R[::-1], pair_z[::-1]
+            Q2, R = torch.linalg.qr(torch.cat(pair_R, dim=1))
+            z = (Q2.mT @ torch.cat(pair_z, dim=1)[..., None])[..., 0]
+        return qr_update(state, R, z, params)
+    every = comm.all_gather(torch.cat([R, z[:, None]], dim=1)[:, None], group, dim=1)
+    B = every.shape[0]
+    return qr_update(state, every[:, :, :D].reshape(B, nb * D, D),
+                     every[:, :, D].reshape(B, nb * D), params)
 
 
 def budget_blocks(params: MsckfParams) -> int:
@@ -243,7 +273,8 @@ def budget_blocks(params: MsckfParams) -> int:
 
 
 def stack_update(state: FilterState, params: MsckfParams, positions, obs,
-                 use_masks, clone_slots, process_mask, dofs, max_blocks=None):
+                 use_masks, clone_slots, process_mask, dofs, max_blocks=None,
+                 group=None):
     """Per-feature systems -> gating -> row budget -> compacted (Hc, rc),
     each sequence on its own.
 
@@ -252,15 +283,26 @@ def stack_update(state: FilterState, params: MsckfParams, positions, obs,
     a sequence contributes iff that sequence's gated rows before it total
     <= max_update_rows; its used 4-row blocks go, in feature-major order,
     to the next rows of the sequence's (4 * budget_blocks, D) buffer.
-    Returns (Hc (B, 4 NB, D), rc (B, 4 NB), include (B, C))."""
+    Returns (Hc (B, 4 NB, D), rc (B, 4 NB), include (B, C)).
+
+    With a block process `group` of nb ranks, rank bi builds the systems
+    and gammas of its lanes [bi C/nb, (bi + 1) C/nb) only (the gate's SPD
+    solve at C/nb features a sequence), all-gathers the gammas, gates and
+    budgets over the global feature order, and compacts its own lanes'
+    blocks into its own buffer for `tsqr_reduce_update`
+    (vio_msckf_tpu/filter/update.py:stack_update)."""
     P = state.P
     B, C, K = use_masks.shape
     D = P.shape[-1]
     dtype, dev = P.dtype, P.device
+    sl = comm.lanes(group, C)
+    Cl = sl.stop - sl.start
 
-    H, Hp, _, rp, U = feature_system(positions, obs, use_masks, clone_slots,
-                                     state, params)
+    H, Hp, _, rp, U = feature_system(positions[:, sl], obs[:, sl], use_masks[:, sl],
+                                     clone_slots[:, sl], state, params)
     gammas = feature_gamma(H, rp, U, P, params.observation_noise)
+    if group is not None:
+        gammas = comm.all_gather(gammas, group, dim=1)
 
     thresholds = params.chi2_table[torch.clamp(dofs, 1, 99)]
     gate = process_mask & (gammas < thresholds)
@@ -272,12 +314,12 @@ def stack_update(state: FilterState, params: MsckfParams, positions, obs,
     NB = budget_blocks(params)
     if max_blocks is not None:
         NB = min(NB, max_blocks)
-    flat_used = (use_masks & include[..., None]).reshape(B, C * K)
+    flat_used = (use_masks[:, sl] & include[:, sl, None]).reshape(B, Cl * K)
     dest = torch.cumsum(flat_used.to(torch.int64), dim=1) - 1
     dest = torch.where(flat_used & (dest < NB), dest, NB)   # NB = dropped
     bi = torch.arange(B, device=dev)[:, None]
     Hc = torch.zeros((B, NB + 1, 4, D), dtype=dtype, device=dev)
     rc = torch.zeros((B, NB + 1, 4), dtype=dtype, device=dev)
-    Hc[bi, dest] = Hp.reshape(B, C * K, 4, D)
-    rc[bi, dest] = rp.reshape(B, C * K, 4)
+    Hc[bi, dest] = Hp.reshape(B, Cl * K, 4, D)
+    rc[bi, dest] = rp.reshape(B, Cl * K, 4)
     return Hc[:, :NB].reshape(B, NB * 4, D), rc[:, :NB].reshape(B, NB * 4), include

@@ -262,7 +262,9 @@ class StereoTracker:
         birth_order = torch.cumsum(keep_c.to(torch.int64), dim=1) - 1
         new_ids = ts.next_id[:, None] + birth_order
         slot_t = torch.where(keep_t, torch.cumsum(keep_t.to(torch.int64), dim=1) - 1, T)
-        slot_c = torch.where(keep_c, n_keep_t + birth_order, T)
+        # Births past the table's T slots are dropped (slot T), as the
+        # reference's scatter mode="drop" drops them.
+        slot_c = torch.where(keep_c, torch.clamp(n_keep_t + birth_order, max=T), T)
 
         dev = ts.ids.device
         ids = torch.full((B, T), -1, dtype=torch.int64, device=dev)

@@ -157,3 +157,19 @@ def require(t, name, dtype, shape=None):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def counters():
+    """The launch counter of each kernel: its wrapper, whose `by_shape`
+    counts the launches per call shape."""
+    from vio_msckf_torch.ops import fast, klt, spd
+
+    return {"fast_nms": fast.fast_nms, "lk_pyramid": klt.track_pyramid,
+            "spd_gj": spd.spd_solve}
+
+
+def launch_counts():
+    """{kernel: [[call shape, launches], ...]} of this process, in a form
+    JSON keeps."""
+    return {name: [[list(k), v] for k, v in fn.by_shape.items()]
+            for name, fn in counters().items()}

@@ -1,0 +1,164 @@
+"""One rank of a multi-process run of the sharded filter or engine.
+
+    python -m vio_msckf_torch.parallel.worker --rank r --nprocs n \
+        --coordinator host:port --out DIR --replica R --block NB \
+        [--block-across-processes] [--mode filter|engine] [--config tiny|euroc] \
+        [--filter-config JSON] \
+        [--device cuda|cpu] [--backend gloo|nccl] [--frames T] \
+        --sequences JSON
+
+The port's multi-process entry point, in the role the JAX package gives
+tests/distributed_worker.py. Every rank joins the process group through
+the VIO_* protocol (distributed.py), lays the ranks out as an R x NB mesh
+and steps its replica's rows of the batch, T frames. The batch is one
+sequence per entry of --sequences, a JSON list of {"sim": SimConfig
+fields, "hostile": bool}, simulated by data/simulator.py:
+
+  filter  its feature tracks, through the sharded MSCKF step;
+  engine  its stereo frames rendered on the rank's device (the bench's
+          textured world, RENDER; the hostile one where "hostile"),
+          through the sharded engine.
+
+It writes DIR/rank<r>.npz (rows: the batch rows it holds, p: their
+positions (rows, T, 3)) and DIR/rank<r>.json: its place in the mesh, the
+backend, seconds per step after the first, host copies staged for gloo
+per step (comm.STAGED) and, on a CUDA device, the launches of each hand
+kernel per call shape, so that a parent can merge them. Build the kernels
+once (kernels.build) before starting ranks on a card.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from vio_msckf_torch import comm, kernels
+from vio_msckf_torch.config import euroc_config
+from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
+from vio_msckf_torch.parallel.distributed import (
+    collect_local_outputs, local_rows, make_global_batch, make_global_mesh, start_rank)
+from vio_msckf_torch.parallel.multichip import (
+    make_multichip_engine_step, make_multichip_filter_step, tiny_config)
+
+IMU_KEYS = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")
+RENDER = dict(radius=14.0, seed=7)     # the world the CLI's demo and chip_smoke.py render
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--nprocs", type=int, required=True)
+    ap.add_argument("--coordinator", required=True, help="host:port of rank 0")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--replica", type=int, required=True)
+    ap.add_argument("--block", type=int, required=True)
+    ap.add_argument("--block-across-processes", action="store_true")
+    ap.add_argument("--mode", choices=("filter", "engine"), default="filter")
+    ap.add_argument("--config", choices=("tiny", "euroc"), default="euroc")
+    ap.add_argument("--filter-config", default="{}",
+                    help="JSON of FilterConfig fields to replace in the config")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default=None, help="gloo or nccl (default: by device)")
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--sequences", required=True,
+                    help='JSON list of {"sim": {SimConfig fields}, "hostile": bool}')
+    return ap
+
+
+def config(args):
+    """The run's VIOConfig: --config with the --filter-config fields."""
+    cfg = tiny_config() if args.config == "tiny" else euroc_config()
+    return cfg.replace(filter=dataclasses.replace(cfg.filter, **json.loads(args.filter_config)))
+
+
+def filter_batch(cfg, args):
+    """The filter's frames (B, T, ...) as numpy arrays and the inits of
+    every simulated sequence, T = --frames (at most the shortest's)."""
+    seqs = [bundle_frames(simulate_sequence(cfg, SimConfig(**spec["sim"])), cfg)
+            for spec in json.loads(args.sequences)]
+    T = min(args.frames, *(len(f["imu_dt"]) for f, _, _ in seqs))
+    keys = IMU_KEYS + ("feat_ids", "feat_obs", "feat_valid")
+    frames = {k: np.stack([f[k][:T] for f, _, _ in seqs]) for k in keys}
+    return frames, [init for _, init, _ in seqs], T
+
+
+def engine_batch(cfg, args, rows, device):
+    """Rendered stereo frames (rows, T, ...) on `device` and the inits of
+    the sequences this rank holds; the others are not rendered."""
+    from vio_msckf_torch.data.render import HOSTILE_AUGS, render_sequence
+
+    specs = json.loads(args.sequences)
+    T = args.frames
+    frames, inits = {k: [] for k in ("cam0_img", "cam1_img") + IMU_KEYS}, []
+    for b in rows:
+        seq = simulate_sequence(cfg, SimConfig(**specs[b]["sim"]))
+        f, init, first = bundle_frames(seq, cfg)
+        R = seq["gt_R_i_w"][first:first + T].transpose(0, 2, 1)
+        cam0, cam1 = render_sequence(
+            cfg, R, seq["gt_p"][first:first + T], device=device,
+            augs=HOSTILE_AUGS if specs[b].get("hostile") else None, **RENDER)
+        frames["cam0_img"].append(cam0)
+        frames["cam1_img"].append(cam1)
+        for k in IMU_KEYS:
+            frames[k].append(torch.as_tensor(f[k][:T], device=device))
+        inits.append(init)
+    return {k: torch.stack(v) for k, v in frames.items()}, inits, T
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    device = start_rank(args.rank, args.nprocs, args.coordinator, args.device,
+                        args.backend or None)
+    try:
+        cfg = config(args)
+        mesh = make_global_mesh(args.replica, args.block, args.block_across_processes)
+        n_rows = len(json.loads(args.sequences))
+        rows = local_rows(mesh, n_rows)
+        if args.mode == "filter":
+            frames_np, inits, T = filter_batch(cfg, args)
+            frames = make_global_batch(mesh, frames_np, device)
+            inits = [inits[b] for b in rows]
+            step, model = make_multichip_filter_step(cfg, mesh, device=device)
+        else:
+            frames, inits, T = engine_batch(cfg, args, rows, device)
+            step, model = make_multichip_engine_step(cfg, mesh, device=device)
+        carry = model.init_batch(inits)
+
+        for fn in kernels.counters().values():
+            fn.by_shape.clear()
+        comm.STAGED.clear()
+        ps = []
+        for k in range(T):
+            carry, out = step(carry, {key: v[:, k] for key, v in frames.items()})
+            ps.append(out.p)
+            if k == 0:
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        held = collect_local_outputs(mesh, torch.stack(ps, dim=1), n_rows)
+        seconds = time.perf_counter() - t1
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    os.makedirs(args.out, exist_ok=True)
+    np.savez(os.path.join(args.out, f"rank{args.rank}.npz"),
+             rows=np.asarray([b for b, _ in held]), p=np.stack([p for _, p in held]))
+    report = dict(rank=args.rank, replica=mesh.replica, block=mesh.block, backend=backend,
+                  device=str(device), steps=T, step_ms=seconds / max(T - 1, 1) * 1e3,
+                  staged_per_step={k: v / T for k, v in comm.STAGED.items()},
+                  launches=kernels.launch_counts() if device.type == "cuda" else None)
+    with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
+        json.dump(report, f)
+    print(f"rank {args.rank}: replica {mesh.replica} block {mesh.block}, rows {rows}, "
+          f"{T} frames", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

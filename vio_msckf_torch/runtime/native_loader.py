@@ -1,14 +1,17 @@
 """ctypes binding of the native data runtime (runtime/euroc_loader.cc), and
-its fallback. The port's counterpart of vio_msckf_tpu/runtime/
+its fallbacks. The port's counterpart of vio_msckf_tpu/runtime/
 native_loader.py.
 
 The library is built at first use with g++ (libpng, zlib, pthread) into
 vio_msckf_torch/build/runtime-<source hash>/libvio_runtime.so, never at
 import. Where it cannot be built (no compiler, no libpng headers),
-`available()` is False and the readers decode with data/png.py, the
-port's numpy + zlib decoder: `open_loader` then runs it on a thread pool
-behind the same in-order interface (zlib releases the interpreter lock).
-This is host-side image decoding; the GPU path is the same either way.
+`available()` is False and the readers decode as the reference does
+there (vio_msckf_tpu/data/euroc.py:load_png_gray), with PIL; only where
+PIL does not import either, with data/png.py, the port's numpy + zlib
+decoder. `open_loader` then runs that decoder on a thread pool behind the
+same in-order interface (PIL and zlib release the interpreter lock while
+they decode). `decoder_name()` says which of the three runs. This is
+host-side image decoding; the GPU path is the same either way.
 """
 
 import collections
@@ -85,12 +88,36 @@ def available():
     return _get_lib() is not None
 
 
+def _pil_image():
+    """PIL.Image, or None where PIL does not import."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
 def decoder_name():
     """Which PNG decoder the readers use in this process."""
     if available():
         return "libpng (runtime/euroc_loader.cc, native prefetch ring)"
-    return (f"numpy+zlib (data/png.py, thread pool); the native loader did not build: "
-            f"{_state.get('error', '')[:200]}")
+    why = f"the native loader did not build: {_state.get('error', '')[:200]}"
+    Image = _pil_image()
+    if Image is not None:
+        import PIL
+
+        return f"PIL {PIL.__version__} (thread pool); {why}"
+    return f"numpy+zlib (data/png.py, thread pool; PIL does not import); {why}"
+
+
+def decode_fallback(path):
+    """Decode one grayscale PNG where the native loader is unavailable:
+    with PIL where it imports, else with data/png.py."""
+    Image = _pil_image()
+    if Image is None:
+        return decode_png_gray(path)
+    with Image.open(path) as im:
+        return np.array(im.convert("L"), np.uint8)      # writable, for torch.from_numpy
 
 
 def load_png_gray(path, max_bytes=8 * 1024 * 1024):
@@ -145,8 +172,9 @@ class PrefetchingLoader:
 
 
 class PoolLoader:
-    """The same interface over data/png.py's decoder: `threads` workers
-    decode at most `ring` frames ahead of the consumer, in path order."""
+    """The same interface over `decode_fallback` (PIL, else data/png.py):
+    `threads` workers decode at most `ring` frames ahead of the consumer,
+    in path order."""
 
     def __init__(self, paths, width, height, ring=8, threads=4):
         self._paths = list(paths)
@@ -155,7 +183,7 @@ class PoolLoader:
         self._pool = concurrent.futures.ThreadPoolExecutor(threads)
 
     def _decode(self, path):
-        img = decode_png_gray(path)
+        img = decode_fallback(path)
         if img.shape != self._shape:
             raise IOError(f"{path}: {img.shape[::-1]} pixels, expected {self._shape[::-1]}")
         return img
