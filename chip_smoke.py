@@ -8,19 +8,26 @@ Phases, one line each; any failure raises and exits nonzero:
   2. build    - compiles the hand-written kernels (vio_msckf_torch/csrc)
                 from source with nvcc and loads them.
   3. workload - simulates and renders the bench workload (12 s, 752x480
-                stereo, ~220 frames) on the card with the port's renderer.
+                stereo, ~220 frames) on the card with the port's renderer
+                (vio_msckf_torch.bench.build_workload).
   4. kernels  - each kernel against its plain PyTorch twin at the shapes
                 the paths below give it (one sequence, and the batch of 4),
                 with the stated tolerance; the device time of the kernel,
                 its twin and (where one exists) the one PyTorch call that
                 computes the same function; the roofline bound of the same
-                work.
+                work. Also, untimed, at the shapes B = 8 and 16 of
+                `python -m vio_msckf_torch.tools.batch_sweep`, which the
+                smoke does not run.
   5. slice    - VIOEngine over every frame at the full EuRoC config: ATE
                 and RPE against ground truth (fails above the bench's
                 0.5 m bound), launch counts of each kernel in that run
-                (each must be > 0), host syncs in one warm step, and
-                frames/s over a second pass.
-  6. batch    - the bench's 4-sequence batch (bench.py:run_batched: seeds
+                (each must be > 0) and host syncs in one warm step.
+  6. bench    - the port's timed entry, `python -m vio_msckf_torch.bench`
+                (bench.main([]) in this process): its one JSON line with
+                bench.py's keys, ATE within 0.5 m and finite; frames/s is
+                the best of its 3 timed passes over the 220 frames. Every
+                kernel must launch in it.
+  7. batch    - the bench's 4-sequence batch (bench.py:run_batched: seeds
                 4..7), their first 110 frames (cut from 220),
                 through VIOEngine.run_batch at B = 4, twice: ATE/RPE
                 per sequence (0.5 m bound), member 0 against the slice's
@@ -28,8 +35,9 @@ Phases, one line each; any failure raises and exits nonzero:
                 warm batched step (0), hand-kernel launches per batched step
                 (3 LK / 1 FAST / 2 SPD), aggregate frames/s of the second
                 pass, and the cudaLaunchKernel count of one warm step at
-                B = 1 and B = 4 (torch.profiler).
-  7. suite    - the other cells of bench.py --suite: fast motion and the
+                B = 1 and B = 4 (torch.profiler; tools/profile_ops.py:
+                launch_profile).
+  8. suite    - the other cells of bench.py --suite: fast motion and the
                 hostile world (rendered by the port) as one B = 2 batch,
                 each member held against its sequence run alone (1e-4 m
                 bound), then the 30-clone window (D = 201) as one sequence,
@@ -37,7 +45,7 @@ Phases, one line each; any failure raises and exits nonzero:
                 ATE/RPE each (0.5 m bound), beside the JAX package's TPU v5e
                 numbers from SUITE_r05.json (the reference's, not the
                 port's).
-  8. parallel - scale-out (vio_msckf_torch/parallel/): NCCL's answer to two
+  9. parallel - scale-out (vio_msckf_torch/parallel/): NCCL's answer to two
                 ranks on the one card (it refuses them; on two or more cards
                 both must run); the engine in 4 gloo
                 ranks sharing the card as replica 2 x block 2 (the suite's
@@ -52,7 +60,7 @@ Phases, one line each; any failure raises and exits nonzero:
                 gloo. Backend, staged host copies and ms per step of each
                 run; ranks sharing one card give no scaling number. The
                 ranks' launches are merged per call shape.
-  9. cli      - the user's entry point, `python -m vio_msckf_torch --path`
+ 10. cli      - the user's entry point, `python -m vio_msckf_torch --path`
                 (vio_msckf_torch.cli.main): the bench sequence written as
                 an EuRoC mav0/ tree by the port's writer, then run chunked
                 over every frame (dataset_fps, aligned ATE as the CLI
@@ -63,7 +71,7 @@ Phases, one line each; any failure raises and exits nonzero:
                 PNG decoder that ran; the first 32 frames re-encoded by PIL
                 (adaptive filters, as the JAX package writes its trees):
                 chunked dataset_fps, the same TUM lines.
- 10. eskf     - the ESKF pipeline (cli.eskf_euroc, the --pipeline eskf
+ 11. eskf     - the ESKF pipeline (cli.eskf_euroc, the --pipeline eskf
                 --path flow below its plots: the card's machine has no
                 matplotlib) at euroc_config() with the default EskfConfig
                 (K = 512) on the first 110 frames of the same tree: aligned
@@ -76,8 +84,13 @@ Launches are counted per path and per call shape: every counter is set to 0
 just before a path runs and read just after; every kernel of a path must
 launch in it (the ESKF path has one, FAST), and every call shape a path
 launches must be one that a check held against the twin.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel
+(`launches`: the bench path's; `launches_by_path`: every path's;
+`sweep_calls`: the call shapes held untimed, with their bounds); the
+last line is {"ok": true, "device": {...}}. The sweep's shapes are
+tools.batch_sweep.call_shapes(cfg, B), which the sweep holds its own
+launches to; the run fails unless that function gives the shapes the
+slice, bench and batch paths launched (B = 1, 1, 4).
 
 Kernel times (`device_ms`): a spin kernel holds the stream while the host
 enqueues n calls back to back between two CUDA events, so the events see
@@ -100,7 +113,6 @@ import math
 import os
 import shutil
 import struct
-import subprocess
 import tempfile
 import time
 import warnings
@@ -108,11 +120,15 @@ import zlib
 
 import numpy as np
 
-# The bench workload (bench.py:build_workload) and its bound.
-SIM = dict(duration=12.0, seed=4, amp=(1.5, 1.0, 0.5), yaw_rate=0.2, wobble_amp=0.1)
-RENDER = dict(radius=14.0, seed=7)
-ATE_BOUND_M = 0.5
-BATCH = 4                      # bench.py --suite: the 4-sequence batch
+# The bench workload, its bound and the suite's cells are the port's timed
+# entry's (vio_msckf_torch/bench.py, the counterpart of bench.py).
+from vio_msckf_torch.bench import (ATE_BOUND_M, FAST_MOTION, SIM, build_workload,
+                                   stack_workloads)
+from vio_msckf_torch.bench import SUITE_BATCH as BATCH
+from vio_msckf_torch.data.render import BENCH_WORLD
+from vio_msckf_torch.tools.batch_sweep import call_shapes
+from vio_msckf_torch.tools.profile_ops import launch_profile
+
 CLI_CHUNK = 32                 # the CLI's default --chunk
 CLI_PARTIAL = 110              # frames of the --preload and per-frame runs
 CKPT_FRAME = 64                # where the interrupted CLI run checkpoints
@@ -125,9 +141,7 @@ CLI_PIL = 32                   # frames of the run on PIL-encoded PNGs
 # 0.4419 m, printed beside the port's as an anchor.
 ESKF_ATE_BOUND_M = 1.0
 ESKF_CPU_ANCHOR_ATE = 0.4419
-# bench.py --suite's other cells: (name, SimConfig overrides, hostile).
-FAST_MOTION = dict(amp=(2.5, 1.8, 0.9), yaw_rate=0.6, wobble_amp=0.25, seed=11)
-CLONES_30 = 30
+CLONES_30 = 30                 # bench.py --suite's enlarged window
 # Depth cuts, to keep the smoke well inside its time limit with the cli
 # and eskf phases on a slow host: the batch phase covers the first
 # BATCH_DEPTH frames of its four sequences, the suite's cells (the
@@ -223,6 +237,12 @@ def nbytes(*tensors):
     return sum(seen.values())
 
 
+def untimed(nbytes_, ops):
+    """The bound of a call checked but not timed."""
+    b_ms, by = bound(nbytes_, ops)
+    return dict(bytes=nbytes_, ops=ops, bound_ms=b_ms, bound_by=by)
+
+
 def summed(calls):
     """Per-frame totals over the call shapes of one kernel."""
     tot = lambda k: sum(c[k] * c["per_frame"] for c in calls)  # noqa: E731
@@ -238,12 +258,11 @@ def summed(calls):
 def phase_device():
     import torch
 
+    from vio_msckf_torch.tools import card as nvidia_smi_card
+
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = nvidia_smi_card()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
     return card
@@ -260,41 +279,11 @@ def phase_build():
         + " | ".join(regs))
 
 
-def build_workload(cfg, dev, sim=None, augs=None):
-    """Simulate and render one bench sequence on the card (bench.py:
-    build_workload): frames dict, init dict, ground-truth positions, n."""
-    import torch
-    from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
-    from vio_msckf_torch.data.render import render_sequence
-
-    seq = simulate_sequence(cfg, SimConfig(**dict(SIM, **(sim or {}))))
-    frames, init, first = bundle_frames(seq, cfg)
-    n = len(frames["timestamp"])
-    R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
-    gt = seq["gt_p"][first:first + n]
-    cam0, cam1 = render_sequence(cfg, R, gt, device=dev, augs=augs, **RENDER)
-    dframes = dict(cam0_img=cam0, cam1_img=cam1)
-    for k in ("imu_gyro", "imu_acc", "imu_dt", "imu_valid"):
-        dframes[k] = torch.as_tensor(frames[k], device=dev)
-    return dframes, init, gt, n
-
-
-def stack_workloads(workloads):
-    """Sequences of one length -> frames (B, T, ...), inits, gts, n."""
-    import torch
-
-    n = workloads[0][3]
-    if any(w[3] != n for w in workloads):
-        raise AssertionError(f"sequence lengths differ: {[w[3] for w in workloads]}")
-    frames = {k: torch.stack([w[0][k] for w in workloads]) for k in workloads[0][0]}
-    return frames, [w[1] for w in workloads], [w[2] for w in workloads], n
-
-
 def phase_workload(cfg, dev):
     import torch
 
     t0 = time.perf_counter()
-    dframes, init, gt, n = build_workload(cfg, dev)
+    dframes, init, gt, n = build_workload(cfg, device=dev)
     torch.cuda.synchronize()
     log(f"[workload] {n} stereo frames {tuple(dframes['cam0_img'].shape[1:])} rendered on "
         f"the card in {time.perf_counter() - t0:.2f} s")
@@ -312,6 +301,16 @@ FAST_THRESHOLDS = (0.0, 15.0, 40.0)
 BATCH_FRAMES = (0, 40, 110, 219)
 SUITE_B = 2                    # the suite's fast motion + hostile batch
 SUITE_FRAMES = (70, 150)
+# The batch sizes of `python -m vio_msckf_torch.tools.batch_sweep` beyond the
+# batch's 4 (its B = 1, 2, 4 are the slice's, the suite's and the batch's
+# shapes). The smoke does not run the sweep; it holds each kernel against
+# its twin at call_shapes(cfg, B) for these B for correctness, untimed.
+SWEEP_BATCHES = (8, 16)
+
+
+def sweep_frames(n, B):
+    """B distinct frames of the workload, spread over it."""
+    return [int(k) for k in np.linspace(0, n - 2, B)]
 
 
 def fast_inputs(frames, n, dev):
@@ -353,7 +352,7 @@ def fast_call(img, thr, path):
     return c
 
 
-def check_fast(frames, n, dev):
+def check_fast(cfg, frames, n, dev):
     import torch
     from vio_msckf_torch.ops import fast
 
@@ -369,6 +368,21 @@ def check_fast(frames, n, dev):
                 bad = int((out != ref).sum())
                 raise AssertionError(f"FAST kernel differs from its twin on {name} "
                                      f"{tuple(img.shape)} at threshold {thr}: {bad} pixels")
+
+    # The sweep's calls: (B, 480, 752) at the tracker's threshold, bit for bit.
+    sweep = []
+    for B in SWEEP_BATCHES:
+        (key,) = call_shapes(cfg, B)["fast_nms"]
+        img = frames["cam0_img"][sweep_frames(n, B)].contiguous()
+        if tuple(img.shape) != key[:3]:
+            raise AssertionError(f"the sweep's FAST call is {key}, the frames {tuple(img.shape)}")
+        out, ref = fast.fast_nms(img, key[3]), fast.fast_score_map(img, key[3])
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"FAST kernel differs from its twin on the sweep's "
+                                 f"{tuple(img.shape)}: {int((out != ref).sum())} pixels")
+        sweep.append(dict(path=f"sweep B={B}", key=list(key),
+                          **untimed(nbytes(img, out), img.numel() * FAST_OPS_PER_PX)))
 
     def timed(img, path):
         return fast_call(img, 15.0, path)
@@ -389,12 +403,12 @@ def check_fast(frames, n, dev):
         f"{pair['ms']:.5f} ms vs twin {pair['plain_ms']:.5f} ms; blocky: "
         f"{dense['corners']} corners, {dense['candidates']} candidates, {dense['ms']:.5f} ms "
         f"vs twin {dense['plain_ms']:.5f} ms; bound {call['bound_ms'] * 1e3:.3f} us "
-        f"({call['bound_by']})")
+        f"({call['bound_by']}); bit-exact at the sweep's B = {SWEEP_BATCHES} (untimed)")
     return dict(name="fast_nms", route="cuda", source="vio_msckf_torch/csrc/fast_nms.cu",
                 replaces="vio_msckf_tpu/ops/fast_pallas.py:71", max_abs_err=err,
                 library_note="no single PyTorch call computes FAST-9 + NMS",
                 calls=[call, batch, pair], dense_input=dense, batch=summed([batch]),
-                **summed([call]))
+                sweep_calls=sweep, **summed([call]))
 
 
 def _lk_points(img, n, W, H, rng):
@@ -479,14 +493,16 @@ def check_lk(cfg, frames, dev):
     # One sequence tracking frame 40 (in motion), four sequences tracking
     # frames 40, 70, 100, 130 and the suite's two tracking frames 40 and
     # 70: distinct planes, so a kernel that reads the wrong sequence's
-    # plane disagrees with the twin.
+    # plane disagrees with the twin. The sweep's B = 8 and 16, untimed.
     calls = (lk_calls(cfg, frames, dev, [40], "slice")
              + lk_calls(cfg, frames, dev, [min(40 + 30 * b, n - 2) for b in range(BATCH)],
                         "batch")
-             + lk_calls(cfg, frames, dev, [40, 70], "suite B=2"))
+             + lk_calls(cfg, frames, dev, [40, 70], "suite B=2")
+             + [c for B in SWEEP_BATCHES
+                for c in lk_calls(cfg, frames, dev, sweep_frames(n, B), f"sweep B={B}")])
     cpu = lambda pyr: [x.cpu() for x in pyr]          # noqa: E731
 
-    worst_err, lines, out = 0.0, [], []
+    worst_err, lines, out, sweep = 0.0, [], [], []
     for name, path, call, tw, pyrs in calls:
         got = call()
         if name == "verify":
@@ -510,14 +526,19 @@ def check_lk(cfg, frames, dev):
         min_size = tw.get("min_size", win + 8)
         n_lv = sum(min(x.shape[1:]) >= min_size for x in pyrs[0])
         imgs = [x for pyr in pyrs for x in pyr if min(x.shape[1:]) >= min_size]
+        lk_bytes = nbytes(*imgs, tw["pts_prev"], tw["pts_init"]) + B * P * (8 + 1 + 4)
+        lk_ops = B * P * n_lv * LK_OPS_PER_LEVEL + int(it_t.sum()) * LK_OPS_PER_ITER
+        if path.startswith("sweep"):
+            sweep.append(dict(path=path, name=name, key=[B, P, tw.get("n_first", P)],
+                              newton_iters=int(it_t.sum()), **untimed(lk_bytes, lk_ops)))
+            continue
         # Newton iterations: the twin's count sets the bound; the slowest
         # feature's count sets the kernel's time.
         c = dict(name=name, path=path, B=B, P=P, n_first=tw.get("n_first", P), levels=n_lv,
                  per_frame=1 / B,
                  newton_iters=int(it_t.sum()), kernel_newton_iters=int(it_k.sum()),
                  max_feature_iters=int(it_t.max()),
-                 bytes=nbytes(*imgs, tw["pts_prev"], tw["pts_init"]) + B * P * (8 + 1 + 4),
-                 ops=B * P * n_lv * LK_OPS_PER_LEVEL + int(it_t.sum()) * LK_OPS_PER_ITER,
+                 bytes=lk_bytes, ops=lk_ops,
                  ms=device_ms(call, 50),
                  plain_ms=device_ms(lambda: klt.track_pyramid_plain(**tw, **lk_args), 3,
                                     runs=3, sync_free=False),
@@ -529,16 +550,23 @@ def check_lk(cfg, frames, dev):
                      f"kernel, at most {c['max_feature_iters']} a feature): "
                      f"{c['ms']:.5f} ms vs twin {c['plain_ms']:.3f} ms, bound "
                      f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']})")
+    for B in SWEEP_BATCHES:
+        keys = {tuple(c["key"]) for c in sweep if c["path"] == f"sweep B={B}"}
+        want = call_shapes(cfg, B)["lk_pyramid"]
+        if keys != want:
+            raise AssertionError(f"the sweep's LK calls at B={B} are {sorted(want)}, "
+                                 f"checked {sorted(keys)}")
     tot = summed([c for c in out if c["path"] == "slice"])
     tot_b = summed([c for c in out if c["path"] == "batch"])
     tot_s = summed([c for c in out if c["path"] == "suite B=2"])
     log(f"[kernel lk] {'; '.join(lines)}; worst gap {worst_err:.2e} px; LK device ms per "
         f"frame {tot['ms']:.5f} (B=1), per sequence-frame {tot_b['ms']:.5f} (B={BATCH}) "
-        f"and {tot_s['ms']:.5f} (B={SUITE_B})")
+        f"and {tot_s['ms']:.5f} (B={SUITE_B}); the sweep's temporal / stereo / verify "
+        f"calls at B = {SWEEP_BATCHES} agree (untimed)")
     return dict(name="lk_pyramid", route="cuda", source="vio_msckf_torch/csrc/lk_pyramid.cu",
                 replaces="vio_msckf_tpu/ops/klt_pallas.py:63", max_abs_err=worst_err,
                 library_note="no single PyTorch call computes an LK pyramid walk",
-                calls=out, batch=tot_b, **tot)
+                calls=out, batch=tot_b, sweep_calls=sweep, **tot)
 
 
 def _spd_active_ops(B, k):
@@ -573,14 +601,23 @@ SPD_CALLS = (("slice", 1, 128, 80, 141, 2e-3, 2e-3), ("slice", 1, 160, 8, 141, 1
              ("parallel", 1, 32, 80, 141, 2e-3, 2e-3), ("parallel", 1, 40, 8, 141, 1e-4, 1e-3))
 
 
-def check_spd(dev):
+def sweep_spd_calls(cfg):
+    """SPD_CALLS rows of the sweep's B = 8 and 16 (call_shapes), held against
+    the twin untimed, at the tolerances of the same m above."""
+    tol = {m: (atol, rtol) for _, _, _, m, _, atol, rtol in SPD_CALLS}
+    return tuple((f"sweep B={B}", B, F // B, m, cfg.state_dim, *tol[m])
+                 for B in SWEEP_BATCHES
+                 for F, m, _ in sorted(call_shapes(cfg, B)["spd_gj"]))
+
+
+def check_spd(cfg, dev):
     import torch
     from vio_msckf_torch.ops import spd
 
     rng = np.random.default_rng(1)
     s = 0.035 ** 2
-    lines, worst, calls = [], 0.0, []
-    for path, nseq, F, m, D, atol_f, rtol in SPD_CALLS:
+    lines, worst, calls, sweep = [], 0.0, [], []
+    for path, nseq, F, m, D, atol_f, rtol in SPD_CALLS + sweep_spd_calls(cfg):
         A = torch.as_tensor(rng.normal(size=(D, D)) * 0.05, dtype=torch.float32, device=dev)
         P = A @ A.T
         Hm = torch.as_tensor(rng.normal(size=(nseq * F, m, D)) * 0.5, dtype=torch.float32,
@@ -604,6 +641,12 @@ def check_spd(dev):
                                  f"{err:.3g}, {used:.3g} of the per-row tolerance")
         worst = max(worst, err)
         ops, mean_active = _spd_active_ops(B.reshape(-1, m, m), 4)
+        if path.startswith("sweep"):
+            sweep.append(dict(path=path, key=[nseq * F, m, 4], mean_active_pivots=mean_active,
+                              **untimed(nbytes(B, R, X), ops)))
+            lines.append(f"{path} m={m} F={nseq * F} max err {err:.2e} ({used:.2e} of the "
+                         f"per-row tolerance; untimed; bound {sweep[-1]['bound_ms'] * 1e3:.3f} us)")
+            continue
         c = dict(path=path, F=nseq * F, m=m, k=4,
                  per_frame=1 / nseq, mean_active_pivots=mean_active,
                  bytes=nbytes(B, R, X), ops=ops,
@@ -620,7 +663,7 @@ def check_spd(dev):
     return dict(name="spd_gj", route="cuda", source="vio_msckf_torch/csrc/spd_gj.cu",
                 replaces="vio_msckf_tpu/ops/spd_pallas.py:47", max_abs_err=worst,
                 calls=calls, batch=summed([c for c in calls if c["path"] == "batch"]),
-                **summed([c for c in calls if c["path"] == "slice"]))
+                sweep_calls=sweep, **summed([c for c in calls if c["path"] == "slice"]))
 
 
 KERNELS = ("fast_nms", "lk_pyramid", "spd_gj")
@@ -713,40 +756,38 @@ def phase_slice(cfg, frames, init, gt, n, dev):
         + (f" ({'; '.join(sorted(set(syncs)))})" if syncs else ""))
     if syncs:
         raise AssertionError(f"{len(syncs)} host syncs in one step")
+    return dict(launches=launches, shapes=shapes, est=est, eng=eng, carry=carry, frame=frame)
 
-    torch.cuda.synchronize()
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ate_rmse_m", "rpe_rmse_m"}
+
+
+def phase_bench():
+    """`python -m vio_msckf_torch.bench` in this process: its one JSON line
+    (bench.py's keys), held to the bench's bound, and its launches."""
+    from vio_msckf_torch import bench
+
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(buf):
+        rc, launches, shapes = counted("bench", lambda: bench.main([]))
     sec = time.perf_counter() - t0
-    log(f"[slice] second pass {sec:.3f} s = {n / sec:.2f} frames/s (host clock, "
-        f"ends in synchronize)")
-    return dict(launches=launches, shapes=shapes, est=est, eng=eng, carry=carry,
-                frame=frame, fps=n / sec)
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"bench.main([]) returned {rc} and printed {len(lines)} lines")
+    result = json.loads(lines[0])
+    nums = [result.get(k) for k in ("value", "vs_baseline", "ate_rmse_m", "rpe_rmse_m")]
+    if (set(result) != BENCH_KEYS or result["unit"] != "frames/s"
+            or not all(isinstance(x, float) and math.isfinite(x) for x in nums)
+            or not result["value"] > 0 or result["ate_rmse_m"] > ATE_BOUND_M):
+        raise AssertionError(f"bench line out of bounds: {lines[0]}")
+    log(f"[bench] {lines[0]}")
+    log(f"[bench] {sec:.1f} s in main() (workload, first pass, 3 timed passes); launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return dict(result=result, launches=launches, shapes=shapes)
 
 
-def launch_profile(step):
-    """cudaLaunchKernel (and cuLaunchKernel) calls, device kernel
-    time and kernels run by name, of one step() under torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    launches = {e.key: e.count for e in events if "LaunchKernel" in e.key}
-    device_us, kernels = 0.0, {}
-    for e in events:
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            device_us += getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
-            kernels[e.key] = e.count
-    return launches, device_us / 1e3, kernels
-
-
-def phase_batch(cfg, dev, single):
+def phase_batch(cfg, dev, single, bench_fps):
     import torch
     from vio_msckf_torch.engine import VIOEngine
 
@@ -754,7 +795,7 @@ def phase_batch(cfg, dev, single):
     n = BATCH_DEPTH
     frames, inits, gts, _ = stack_workloads(
         [({k: v[:n] for k, v in w[0].items()}, w[1], w[2][:n], n)
-         for w in (build_workload(cfg, dev, dict(seed=4 + b)) for b in range(BATCH))])
+         for w in (build_workload(cfg, dict(seed=4 + b), device=dev) for b in range(BATCH))])
     torch.cuda.synchronize()
     log(f"[batch] {BATCH} sequences (seeds 4..{3 + BATCH}) x {n} frames rendered in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -797,7 +838,8 @@ def phase_batch(cfg, dev, single):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     log(f"[batch] second pass {sec:.3f} s = {BATCH * n / sec:.2f} aggregate frames/s "
-        f"({n / sec:.2f} steps/s; one sequence in this call: {single['fps']:.2f} frames/s)")
+        f"({n / sec:.2f} steps/s; one sequence in this call, the bench's best of 3: "
+        f"{bench_fps:.2f} frames/s)")
 
     prof = {}
     for name, step in (("B=1", lambda: single["eng"].step(single["carry"], single["frame"])),
@@ -812,9 +854,10 @@ def phase_batch(cfg, dev, single):
     # from B = 1 to B = 4 (one code path, so a growth is a library call
     # issuing work per matrix or per sequence).
     k1, k4 = prof["B=1"]["kernels"], prof[f"B={BATCH}"]["kernels"]
-    grow = sorted(((k4.get(k, 0) - k1.get(k, 0), k) for k in set(k1) | set(k4)), reverse=True)
+    c1, c4 = ({k: v["calls"] for k, v in ks.items()} for ks in (k1, k4))
+    grow = sorted(((c4.get(k, 0) - c1.get(k, 0), k) for k in set(c1) | set(c4)), reverse=True)
     log("[batch] kernels whose count grows from B=1 to B=%d: " % BATCH + "; ".join(
-        f"{k[:70]} {k1.get(k, 0)} -> {k4.get(k, 0)}" for d, k in grow[:6] if d > 0))
+        f"{k[:70]} {c1.get(k, 0)} -> {c4.get(k, 0)}" for d, k in grow[:6] if d > 0))
     return dict(launches=launches, shapes=shapes, fps=BATCH * n / sec, profile=prof)
 
 
@@ -827,8 +870,8 @@ def phase_suite(cfg, dev):
     # Fast motion and the hostile world (seed 4, rendered with
     # HOSTILE_AUGS by the port) as one B = 2 batch.
     names = ("fast motion", "hostile")
-    workloads = [build_workload(cfg, dev, FAST_MOTION),
-                 build_workload(cfg, dev, augs=HOSTILE_AUGS)]
+    workloads = [build_workload(cfg, FAST_MOTION, device=dev),
+                 build_workload(cfg, render_augs=HOSTILE_AUGS, device=dev)]
     n = SUITE_DEPTH
     workloads = [({k: v[:n] for k, v in w[0].items()}, w[1], w[2][:n], n) for w in workloads]
     frames, inits, gts, _ = stack_workloads(workloads)
@@ -861,7 +904,7 @@ def phase_suite(cfg, dev):
 
     # The 30-clone window (bench.py: FilterConfig(max_cam_state_size=30)).
     big = cfg.replace(filter=FilterConfig(max_cam_state_size=CLONES_30))
-    dframes, init, gt, _ = build_workload(big, dev)
+    dframes, init, gt, _ = build_workload(big, device=dev)
     n = SUITE_DEPTH
     dframes, gt = {k: v[:n] for k, v in dframes.items()}, gt[:n]
     eng = VIOEngine(big, dev)
@@ -1113,7 +1156,7 @@ def phase_cli(cfg, dev, root):
     from vio_msckf_torch.utils.metrics import ate_rmse, rpe_rmse
 
     t0 = time.perf_counter()
-    written = write_synthetic_euroc(root, cfg, SimConfig(**SIM), render_seed=RENDER["seed"],
+    written = write_synthetic_euroc(root, cfg, SimConfig(**SIM), render_seed=BENCH_WORLD["seed"],
                                     device=dev)
     log(f"[cli] wrote the bench sequence as an EuRoC tree: {written} stereo PNG pairs "
         f"{cfg.cam0.resolution[0]}x{cfg.cam0.resolution[1]} in "
@@ -1317,22 +1360,30 @@ def main():
     phase_build()
     cfg = euroc_config()
     frames, init, gt, n = phase_workload(cfg, dev)
-    entries = [check_fast(frames, n, dev), check_lk(cfg, frames, dev), check_spd(dev)]
+    entries = [check_fast(cfg, frames, n, dev), check_lk(cfg, frames, dev), check_spd(cfg, dev)]
     single = phase_slice(cfg, frames, init, gt, n, dev)
-    batch = phase_batch(cfg, dev, single)
+    bench_run = phase_bench()
+    batch = phase_batch(cfg, dev, single, bench_run["result"]["value"])
     suite, suite_launches = phase_suite(cfg, dev)
     par_launches = phase_parallel(cfg, dev, suite, dict(single, init=init), frames)
     with tempfile.TemporaryDirectory(prefix="vio_euroc_") as root:
         cli_res = phase_cli(cfg, dev, root)
         eskf = phase_eskf(cfg, dev, root, entries[0])
     paths = {"slice": (single["launches"], single["shapes"]),
+             "bench": (bench_run["launches"], bench_run["shapes"]),
              "batch": (batch["launches"], batch["shapes"]), **suite_launches, **par_launches,
              **{p: (r["launches"], r["shapes"]) for p, r in cli_res["runs"].items()},
              "eskf": (eskf["launches"], eskf["shapes"])}
     for e in entries:
         name = e["name"]
-        e["launches"] = single["launches"][name]
-        e["launches_per_frame"] = e["launches"] / n
+        # The sweep's shapes (call_shapes) are the ones the engine launches.
+        for p, B in (("slice", 1), ("bench", 1), ("batch", BATCH)):
+            if set(paths[p][1][name]) != call_shapes(cfg, B)[name]:
+                raise AssertionError(f"{name}: the {p} path launched {sorted(paths[p][1][name])}, "
+                                     f"call_shapes(cfg, {B}) gives "
+                                     f"{sorted(call_shapes(cfg, B)[name])}")
+        e["launches"] = bench_run["launches"][name]
+        e["launches_per_frame"] = single["launches"][name] / n
         e["launches_by_path"] = {p: l[name] for p, (l, _) in paths.items()}
         e["launches_by_shape"] = {p: {str(list(k)): v for k, v in s[name].items()}
                                   for p, (_, s) in paths.items()}
@@ -1342,7 +1393,8 @@ def main():
                 raise AssertionError(f"{name} call shape {_shape_key(name, c)} was not "
                                      f"launched on the {c['path']} path")
         # Every shape a path launched was held against the twin in phase 4.
-        checked = {_shape_key(name, c) for c in e["calls"]}
+        checked = ({_shape_key(name, c) for c in e["calls"]}
+                   | {tuple(c["key"]) for c in e["sweep_calls"]})
         for p, (_, s) in paths.items():
             unchecked = sorted(set(s[name]) - checked)
             if unchecked:

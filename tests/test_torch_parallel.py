@@ -33,13 +33,12 @@ from PIL import Image
 from test_torch_slice import FORBIDDEN, PKG, REPO, _imports
 from vio_msckf_torch.data import euroc as teuroc
 from vio_msckf_torch.data.png import encode_png_gray
-from vio_msckf_torch.data.render import render_sequence
+from vio_msckf_torch.data.render import BENCH_WORLD, render_sequence
 from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
 from vio_msckf_torch.filter.msckf import MSCKF
 from vio_msckf_torch.frontend.tracker import StereoTracker
 from vio_msckf_torch.parallel import tiny_config
 from vio_msckf_torch.parallel.distributed import Ranks
-from vio_msckf_torch.parallel.worker import RENDER
 from vio_msckf_torch.runtime import native_loader
 
 SEEDS = (1, 2)
@@ -160,7 +159,8 @@ def _check_tracker_drops_births_past_table():
     seq = simulate_sequence(cfg, SimConfig(duration=6.0, seed=SEEDS[0]))
     f, _, first = bundle_frames(seq, cfg)
     R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
-    cam0, cam1 = render_sequence(cfg, R, seq["gt_p"][first:first + n], device="cpu", **RENDER)
+    cam0, cam1 = render_sequence(cfg, R, seq["gt_p"][first:first + n], device="cpu",
+                                 **BENCH_WORLD)
     jt, tt = JStereoTracker(narrow(jtiny_config())), StereoTracker(cfg, device="cpu")
     js, ts, jstep = jt.init(), tt.init(1), jax.jit(jt.step)
     for k in range(n):

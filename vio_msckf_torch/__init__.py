@@ -25,6 +25,10 @@ reference the port is tested against. The layout mirrors it:
   cli.py     `python -m vio_msckf_torch`: EuRoC --path, --demo, --pipeline
              eskf, TUM output, checkpoints (viewer.py: the live viewer)
   convert.py state conversion from and to the JAX package's pytrees
+  bench.py   `python -m vio_msckf_torch.bench`: the timed entry (default,
+             --suite, --scaling), the repository bench.py's counterpart
+  tools/     measurement tools: profile_ops (the device profile of the
+             step), batch_sweep (aggregate frames/s over B)
 
 Every kernel wrapper dispatches on the device of its input: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain PyTorch twin

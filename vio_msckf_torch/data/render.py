@@ -43,6 +43,10 @@ class RenderAugs:
     seed: int = 99
 
 
+# The world the bench sequences (vio_msckf_torch/bench.py) and the scale-out
+# ranks render: sphere radius and texture seed.
+BENCH_WORLD = dict(radius=14.0, seed=7)
+
 # The hostile suite cell (bench.py --suite).
 HOSTILE_AUGS = RenderAugs(
     gain_amp=0.10, bias_amp=8.0, noise_std=2.5, vignette=0.3,

@@ -59,7 +59,11 @@ def start_rank(rank, nprocs, coordinator, device="cuda", backend=None):
     """A rank process's bootstrap: the VIO_* variables from its arguments,
     its device (a CUDA device without an index: card rank % cards; one
     intra-op thread on the CPU, where ranks share the cores), then
-    `initialize_from_env`. Returns the device."""
+    `initialize_from_env`. A run of one rank (the first row of a scaling
+    table) joins a group of one, which `initialize_from_env` leaves alone.
+    Returns the device."""
+    if nprocs < 1:
+        raise SystemExit(f"a rank process needs 1 or more ranks, got {nprocs}")
     os.environ.update(VIO_NUM_PROCESSES=str(nprocs), VIO_PROCESS_ID=str(rank),
                       VIO_COORDINATOR=coordinator)
     device = torch.device(device)
@@ -70,7 +74,8 @@ def start_rank(rank, nprocs, coordinator, device="cuda", backend=None):
     else:
         torch.set_num_threads(1)
     if not initialize_from_env(backend, device):
-        raise SystemExit(f"a rank process needs 2 or more ranks, got {nprocs}")
+        dist.init_process_group(backend or ("nccl" if device.type == "cuda" else "gloo"),
+                                init_method="tcp://" + coordinator, world_size=1, rank=0)
     return device
 
 

@@ -4,7 +4,7 @@
         --coordinator host:port --out DIR --replica R --block NB \
         [--block-across-processes] [--mode filter|engine] [--config tiny|euroc] \
         [--filter-config JSON] \
-        [--device cuda|cpu] [--backend gloo|nccl] [--frames T] \
+        [--device cuda|cpu] [--backend gloo|nccl] [--frames T] [--reps N] \
         --sequences JSON
 
 The port's multi-process entry point, in the role the JAX package gives
@@ -14,16 +14,22 @@ and steps its replica's rows of the batch, T frames. The batch is one
 sequence per entry of --sequences, a JSON list of {"sim": SimConfig
 fields, "hostile": bool}, simulated by data/simulator.py:
 
-  filter  its feature tracks, through the sharded MSCKF step;
+  filter  its feature tracks, through the sharded MSCKF step (T = 0:
+          every frame of the shortest sequence);
   engine  its stereo frames rendered on the rank's device (the bench's
-          textured world, RENDER; the hostile one where "hostile"),
+          textured world, BENCH_WORLD; the hostile one where "hostile"),
           through the sharded engine.
 
 It writes DIR/rank<r>.npz (rows: the batch rows it holds, p: their
 positions (rows, T, 3)) and DIR/rank<r>.json: its place in the mesh, the
 backend, seconds per step after the first, host copies staged for gloo
 per step (comm.STAGED) and, on a CUDA device, the launches of each hand
-kernel per call shape, so that a parent can merge them. Build the kernels
+kernel per call shape, so that a parent can merge them. With --reps N the
+rank then steps the T frames N more times, each pass from a fresh carry,
+after a barrier that starts every rank's pass together, and ending on the
+device; `pass_s` holds each pass's seconds (bench.py --scaling takes the
+slowest rank's). A mesh of one block column (NB = 1) gives the filter no
+block group: replicas only, no collective in the step. Build the kernels
 once (kernels.build) before starting ranks on a card.
 """
 
@@ -47,7 +53,6 @@ from vio_msckf_torch.parallel.multichip import (
     make_multichip_engine_step, make_multichip_filter_step, tiny_config)
 
 IMU_KEYS = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")
-RENDER = dict(radius=14.0, seed=7)     # the world the CLI's demo and chip_smoke.py render
 
 
 def build_parser():
@@ -66,6 +71,8 @@ def build_parser():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None, help="gloo or nccl (default: by device)")
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=0,
+                    help="timed passes over the frames after the first")
     ap.add_argument("--sequences", required=True,
                     help='JSON list of {"sim": {SimConfig fields}, "hostile": bool}')
     return ap
@@ -82,7 +89,8 @@ def filter_batch(cfg, args):
     every simulated sequence, T = --frames (at most the shortest's)."""
     seqs = [bundle_frames(simulate_sequence(cfg, SimConfig(**spec["sim"])), cfg)
             for spec in json.loads(args.sequences)]
-    T = min(args.frames, *(len(f["imu_dt"]) for f, _, _ in seqs))
+    lengths = [len(f["imu_dt"]) for f, _, _ in seqs]
+    T = min(lengths) if args.frames <= 0 else min(args.frames, *lengths)
     keys = IMU_KEYS + ("feat_ids", "feat_obs", "feat_valid")
     frames = {k: np.stack([f[k][:T] for f, _, _ in seqs]) for k in keys}
     return frames, [init for _, init, _ in seqs], T
@@ -91,7 +99,7 @@ def filter_batch(cfg, args):
 def engine_batch(cfg, args, rows, device):
     """Rendered stereo frames (rows, T, ...) on `device` and the inits of
     the sequences this rank holds; the others are not rendered."""
-    from vio_msckf_torch.data.render import HOSTILE_AUGS, render_sequence
+    from vio_msckf_torch.data.render import BENCH_WORLD, HOSTILE_AUGS, render_sequence
 
     specs = json.loads(args.sequences)
     T = args.frames
@@ -102,13 +110,27 @@ def engine_batch(cfg, args, rows, device):
         R = seq["gt_R_i_w"][first:first + T].transpose(0, 2, 1)
         cam0, cam1 = render_sequence(
             cfg, R, seq["gt_p"][first:first + T], device=device,
-            augs=HOSTILE_AUGS if specs[b].get("hostile") else None, **RENDER)
+            augs=HOSTILE_AUGS if specs[b].get("hostile") else None, **BENCH_WORLD)
         frames["cam0_img"].append(cam0)
         frames["cam1_img"].append(cam1)
         for k in IMU_KEYS:
             frames[k].append(torch.as_tensor(f[k][:T], device=device))
         inits.append(init)
     return {k: torch.stack(v) for k, v in frames.items()}, inits, T
+
+
+def timed_pass(step, carry, frames, T, device):
+    """Seconds of one pass over the T frames from `carry`, started with
+    every rank after a barrier and ended on the device."""
+    dist.barrier()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for k in range(T):
+        carry, _ = step(carry, {key: v[:, k] for key, v in frames.items()})
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
 
 
 def main(argv=None):
@@ -124,10 +146,10 @@ def main(argv=None):
             frames_np, inits, T = filter_batch(cfg, args)
             frames = make_global_batch(mesh, frames_np, device)
             inits = [inits[b] for b in rows]
-            step, model = make_multichip_filter_step(cfg, mesh, device=device)
+            step, model = make_multichip_filter_step(cfg, mesh, args.block > 1, device)
         else:
             frames, inits, T = engine_batch(cfg, args, rows, device)
-            step, model = make_multichip_engine_step(cfg, mesh, device=device)
+            step, model = make_multichip_engine_step(cfg, mesh, args.block > 1, device)
         carry = model.init_batch(inits)
 
         for fn in kernels.counters().values():
@@ -143,6 +165,8 @@ def main(argv=None):
                 t1 = time.perf_counter()
         held = collect_local_outputs(mesh, torch.stack(ps, dim=1), n_rows)
         seconds = time.perf_counter() - t1
+        passes = [timed_pass(step, model.init_batch(inits), frames, T, device)
+                  for _ in range(args.reps)]
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
@@ -151,6 +175,7 @@ def main(argv=None):
              rows=np.asarray([b for b, _ in held]), p=np.stack([p for _, p in held]))
     report = dict(rank=args.rank, replica=mesh.replica, block=mesh.block, backend=backend,
                   device=str(device), steps=T, step_ms=seconds / max(T - 1, 1) * 1e3,
+                  pass_s=passes,
                   staged_per_step={k: v / T for k, v in comm.STAGED.items()},
                   launches=kernels.launch_counts() if device.type == "cuda" else None)
     with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
