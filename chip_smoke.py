@@ -15,13 +15,15 @@ Phases, one line each; any failure raises and exits nonzero:
                 with the stated tolerance; the device time of the kernel,
                 its twin and (where one exists) the one PyTorch call that
                 computes the same function; the roofline bound of the same
-                work. Also, untimed, at the shapes B = 8 and 16 of
-                `python -m vio_msckf_torch.tools.batch_sweep`, which the
-                smoke does not run.
-  5. slice    - VIOEngine over every frame at the full EuRoC config: ATE
-                and RPE against ground truth (fails above the bench's
-                0.5 m bound), launch counts of each kernel in that run
-                (each must be > 0) and host syncs in one warm step.
+                work. Also, timed the same way, at the shapes B = 8 and 16
+                of `python -m vio_msckf_torch.tools.batch_sweep`, which
+                the smoke does not run.
+  5. slice    - VIOEngine.run_sequence over every frame at the full EuRoC
+                config (the step captured as a CUDA graph at the first
+                frame and replayed, vio_msckf_torch/graph.py): ATE and RPE
+                against ground truth (fails above the bench's 0.5 m
+                bound), launch counts of each kernel in that run (each
+                must be > 0) and host syncs in one warm eager step.
   6. bench    - the port's timed entry, `python -m vio_msckf_torch.bench`
                 (bench.main([]) in this process): its one JSON line with
                 bench.py's keys, ATE within 0.5 m and finite; frames/s is
@@ -32,10 +34,11 @@ Phases, one line each; any failure raises and exits nonzero:
                 through VIOEngine.run_batch at B = 4, twice: ATE/RPE
                 per sequence (0.5 m bound), member 0 against the slice's
                 trajectory (same workload; 1e-4 m bound), host syncs in one
-                warm batched step (0), hand-kernel launches per batched step
-                (3 LK / 1 FAST / 2 SPD), aggregate frames/s of the second
-                pass, and the cudaLaunchKernel count of one warm step at
-                B = 1 and B = 4 (torch.profiler; tools/profile_ops.py:
+                warm eager batched step (0), hand-kernel launches per
+                batched step (3 LK / 1 FAST / 2 SPD), aggregate frames/s of
+                the second (graphed) pass, and the host's launch calls of
+                one warm eager step at B = 1 and B = 4, the kernels the
+                graph holds (torch.profiler; tools/profile_ops.py:
                 launch_profile).
   8. suite    - the other cells of bench.py --suite: fast motion and the
                 hostile world (rendered by the port) as one B = 2 batch,
@@ -80,13 +83,36 @@ Phases, one line each; any failure raises and exits nonzero:
                 kernel launches and host syncs of one warm step, and the
                 FAST kernel held against its twin bit for bit on the ESKF's
                 rectified stereo pair at threshold 20.
+ 12. graph    - the compiled step (vio_msckf_torch/graph.py, the port's
+                jax.jit(step) under lax.scan) against the eager step: the
+                eager `step` loop over the slice's frames against the
+                slice's graphed run (B = 1), the eager `step_batch` loop
+                over the batch's 110 frames against its graphed run, per
+                member (B = 4), and the ESKF's eager `step` over the first
+                ESKF_GRAPH_FRAMES (16) frames of the CLI's tree against
+                EskfVio.run_sequence: the largest position gap (bound
+                1e-6 m), launch counts equal per call shape, capture time,
+                ms a step eager and graphed; for one replay: host syncs
+                (0), the host's launch calls, device kernels (torch.profiler;
+                the hand kernels' launches in that trace must equal what
+                the runner counts per replay) and the busy share of that
+                profiled replay (their device time over its span between
+                CUDA events; the profiler stretches the span, so this is
+                not an unprofiled replay's share), and a replay's device
+                and host time without the profiler; a graphed run of TRACED_FRAMES
+                (8) frames from a fresh engine traced whole, whose launch
+                counts must equal the trace's; two calls of engine.entry()'s
+                captured step (pose finite).
+Every path above that runs a sequence replays a captured step; the sync
+checks and the profiles of one warm step stay on the eager step, whose
+kernels the graph holds.
 Launches are counted per path and per call shape: every counter is set to 0
 just before a path runs and read just after; every kernel of a path must
 launch in it (the ESKF path has one, FAST), and every call shape a path
 launches must be one that a check held against the twin.
 The line before the last is a JSON object with one entry per kernel
 (`launches`: the bench path's; `launches_by_path`: every path's;
-`sweep_calls`: the call shapes held untimed, with their bounds); the
+`sweep_calls`: the sweep's call shapes, timed, with their bounds); the
 last line is {"ok": true, "device": {...}}. The sweep's shapes are
 tools.batch_sweep.call_shapes(cfg, B), which the sweep holds its own
 launches to; the run fails unless that function gives the shapes the
@@ -127,7 +153,7 @@ from vio_msckf_torch.bench import (ATE_BOUND_M, FAST_MOTION, SIM, build_workload
 from vio_msckf_torch.bench import SUITE_BATCH as BATCH
 from vio_msckf_torch.data.render import BENCH_WORLD
 from vio_msckf_torch.tools.batch_sweep import call_shapes
-from vio_msckf_torch.tools.profile_ops import launch_profile
+from vio_msckf_torch.tools.profile_ops import launch_profile, traced_counts
 
 CLI_CHUNK = 32                 # the CLI's default --chunk
 CLI_PARTIAL = 110              # frames of the --preload and per-frame runs
@@ -174,6 +200,14 @@ PAR_BOUND_M = 5e-3
 # tighter than the reference's bound.
 PAR_FILTER_BOUND_M = 1e-4
 PAR_TIMEOUT_S = 300
+
+# [graph]: graphed against eager. The bound asks for f32 roundoff at most;
+# the graph launches the eager step's kernels on the same inputs, so 0 is
+# expected.
+GRAPH_BOUND_M = 1e-6
+ESKF_GRAPH_FRAMES = 16
+GRAPH_REPLAYS = 20
+TRACED_FRAMES = 8              # frames of the graphed run traced whole
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -237,12 +271,6 @@ def nbytes(*tensors):
     return sum(seen.values())
 
 
-def untimed(nbytes_, ops):
-    """The bound of a call checked but not timed."""
-    b_ms, by = bound(nbytes_, ops)
-    return dict(bytes=nbytes_, ops=ops, bound_ms=b_ms, bound_by=by)
-
-
 def summed(calls):
     """Per-frame totals over the call shapes of one kernel."""
     tot = lambda k: sum(c[k] * c["per_frame"] for c in calls)  # noqa: E731
@@ -304,7 +332,7 @@ SUITE_FRAMES = (70, 150)
 # The batch sizes of `python -m vio_msckf_torch.tools.batch_sweep` beyond the
 # batch's 4 (its B = 1, 2, 4 are the slice's, the suite's and the batch's
 # shapes). The smoke does not run the sweep; it holds each kernel against
-# its twin at call_shapes(cfg, B) for these B for correctness, untimed.
+# its twin at call_shapes(cfg, B) for these B and times it there.
 SWEEP_BATCHES = (8, 16)
 
 
@@ -381,8 +409,7 @@ def check_fast(cfg, frames, n, dev):
         if not torch.equal(out, ref):
             raise AssertionError(f"FAST kernel differs from its twin on the sweep's "
                                  f"{tuple(img.shape)}: {int((out != ref).sum())} pixels")
-        sweep.append(dict(path=f"sweep B={B}", key=list(key),
-                          **untimed(nbytes(img, out), img.numel() * FAST_OPS_PER_PX)))
+        sweep.append(dict(fast_call(img, key[3], f"sweep B={B}"), key=list(key)))
 
     def timed(img, path):
         return fast_call(img, 15.0, path)
@@ -403,7 +430,9 @@ def check_fast(cfg, frames, n, dev):
         f"{pair['ms']:.5f} ms vs twin {pair['plain_ms']:.5f} ms; blocky: "
         f"{dense['corners']} corners, {dense['candidates']} candidates, {dense['ms']:.5f} ms "
         f"vs twin {dense['plain_ms']:.5f} ms; bound {call['bound_ms'] * 1e3:.3f} us "
-        f"({call['bound_by']}); bit-exact at the sweep's B = {SWEEP_BATCHES} (untimed)")
+        f"({call['bound_by']}); bit-exact at the sweep's B = {SWEEP_BATCHES}: " + ", ".join(
+            f"{c['ms']:.5f} ms vs twin {c['plain_ms']:.5f} ms, bound "
+            f"{c['bound_ms'] * 1e3:.3f} us" for c in sweep))
     return dict(name="fast_nms", route="cuda", source="vio_msckf_torch/csrc/fast_nms.cu",
                 replaces="vio_msckf_tpu/ops/fast_pallas.py:71", max_abs_err=err,
                 library_note="no single PyTorch call computes FAST-9 + NMS",
@@ -493,7 +522,7 @@ def check_lk(cfg, frames, dev):
     # One sequence tracking frame 40 (in motion), four sequences tracking
     # frames 40, 70, 100, 130 and the suite's two tracking frames 40 and
     # 70: distinct planes, so a kernel that reads the wrong sequence's
-    # plane disagrees with the twin. The sweep's B = 8 and 16, untimed.
+    # plane disagrees with the twin. The sweep's B = 8 and 16 too.
     calls = (lk_calls(cfg, frames, dev, [40], "slice")
              + lk_calls(cfg, frames, dev, [min(40 + 30 * b, n - 2) for b in range(BATCH)],
                         "batch")
@@ -528,10 +557,6 @@ def check_lk(cfg, frames, dev):
         imgs = [x for pyr in pyrs for x in pyr if min(x.shape[1:]) >= min_size]
         lk_bytes = nbytes(*imgs, tw["pts_prev"], tw["pts_init"]) + B * P * (8 + 1 + 4)
         lk_ops = B * P * n_lv * LK_OPS_PER_LEVEL + int(it_t.sum()) * LK_OPS_PER_ITER
-        if path.startswith("sweep"):
-            sweep.append(dict(path=path, name=name, key=[B, P, tw.get("n_first", P)],
-                              newton_iters=int(it_t.sum()), **untimed(lk_bytes, lk_ops)))
-            continue
         # Newton iterations: the twin's count sets the bound; the slowest
         # feature's count sets the kernel's time.
         c = dict(name=name, path=path, B=B, P=P, n_first=tw.get("n_first", P), levels=n_lv,
@@ -544,8 +569,11 @@ def check_lk(cfg, frames, dev):
                                     runs=3, sync_free=False),
                  library_ms=None)
         c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
-        out.append(c)
-        lines.append(f"{name} B={B} P={B}x{P} x{n_lv} levels agree, "
+        if path.startswith("sweep"):
+            sweep.append(dict(c, key=[B, P, c["n_first"]]))
+        else:
+            out.append(c)
+        lines.append(f"{name} ({path}) B={B} P={B}x{P} x{n_lv} levels agree, "
                      f"{c['newton_iters']} iterations ({c['kernel_newton_iters']} in the "
                      f"kernel, at most {c['max_feature_iters']} a feature): "
                      f"{c['ms']:.5f} ms vs twin {c['plain_ms']:.3f} ms, bound "
@@ -561,8 +589,7 @@ def check_lk(cfg, frames, dev):
     tot_s = summed([c for c in out if c["path"] == "suite B=2"])
     log(f"[kernel lk] {'; '.join(lines)}; worst gap {worst_err:.2e} px; LK device ms per "
         f"frame {tot['ms']:.5f} (B=1), per sequence-frame {tot_b['ms']:.5f} (B={BATCH}) "
-        f"and {tot_s['ms']:.5f} (B={SUITE_B}); the sweep's temporal / stereo / verify "
-        f"calls at B = {SWEEP_BATCHES} agree (untimed)")
+        f"and {tot_s['ms']:.5f} (B={SUITE_B})")
     return dict(name="lk_pyramid", route="cuda", source="vio_msckf_torch/csrc/lk_pyramid.cu",
                 replaces="vio_msckf_tpu/ops/klt_pallas.py:63", max_abs_err=worst_err,
                 library_note="no single PyTorch call computes an LK pyramid walk",
@@ -603,7 +630,7 @@ SPD_CALLS = (("slice", 1, 128, 80, 141, 2e-3, 2e-3), ("slice", 1, 160, 8, 141, 1
 
 def sweep_spd_calls(cfg):
     """SPD_CALLS rows of the sweep's B = 8 and 16 (call_shapes), held against
-    the twin untimed, at the tolerances of the same m above."""
+    the twin at the tolerances of the same m above."""
     tol = {m: (atol, rtol) for _, _, _, m, _, atol, rtol in SPD_CALLS}
     return tuple((f"sweep B={B}", B, F // B, m, cfg.state_dim, *tol[m])
                  for B in SWEEP_BATCHES
@@ -641,12 +668,6 @@ def check_spd(cfg, dev):
                                  f"{err:.3g}, {used:.3g} of the per-row tolerance")
         worst = max(worst, err)
         ops, mean_active = _spd_active_ops(B.reshape(-1, m, m), 4)
-        if path.startswith("sweep"):
-            sweep.append(dict(path=path, key=[nseq * F, m, 4], mean_active_pivots=mean_active,
-                              **untimed(nbytes(B, R, X), ops)))
-            lines.append(f"{path} m={m} F={nseq * F} max err {err:.2e} ({used:.2e} of the "
-                         f"per-row tolerance; untimed; bound {sweep[-1]['bound_ms'] * 1e3:.3f} us)")
-            continue
         c = dict(path=path, F=nseq * F, m=m, k=4,
                  per_frame=1 / nseq, mean_active_pivots=mean_active,
                  bytes=nbytes(B, R, X), ops=ops,
@@ -654,7 +675,10 @@ def check_spd(cfg, dev):
                  plain_ms=device_ms(lambda: spd.spd_solve_plain(B, R), 50),
                  library_ms=device_ms(lambda: torch.linalg.solve_ex(B, R), 50))
         c["bound_ms"], c["bound_by"] = bound(c["bytes"], c["ops"])
-        calls.append(c)
+        if path.startswith("sweep"):
+            sweep.append(dict(c, key=[nseq * F, m, 4]))
+        else:
+            calls.append(c)
         lines.append(f"{path} m={m} F={nseq * F} max err {err:.2e} ({used:.2e} of the per-row "
                      f"tolerance); {c['ms']:.5f} ms vs twin {c['plain_ms']:.5f} ms, solve_ex "
                      f"{c['library_ms']:.5f} ms, bound {c['bound_ms'] * 1e3:.3f} us "
@@ -756,7 +780,8 @@ def phase_slice(cfg, frames, init, gt, n, dev):
         + (f" ({'; '.join(sorted(set(syncs)))})" if syncs else ""))
     if syncs:
         raise AssertionError(f"{len(syncs)} host syncs in one step")
-    return dict(launches=launches, shapes=shapes, est=est, eng=eng, carry=carry, frame=frame)
+    return dict(launches=launches, shapes=shapes, est=est, eng=eng, carry=carry, frame=frame,
+                first_s=first_s)
 
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ate_rmse_m", "rpe_rmse_m"}
@@ -845,7 +870,7 @@ def phase_batch(cfg, dev, single, bench_fps):
     for name, step in (("B=1", lambda: single["eng"].step(single["carry"], single["frame"])),
                        (f"B={BATCH}", lambda: eng.step_batch(carry, frame))):
         step()                                       # warm the profiler's path
-        kl, dev_ms, kernels = launch_profile(step)
+        kl, dev_ms, kernels, _ = launch_profile(step)
         prof[name] = dict(launch_calls=kl, device_ms=dev_ms, kernels=kernels)
         log(f"[batch] one warm step at {name}: {sum(kl.values())} kernel launches ("
             + ", ".join(f"{k} {v}" for k, v in sorted(kl.items())) + f"), device kernel "
@@ -858,7 +883,9 @@ def phase_batch(cfg, dev, single, bench_fps):
     grow = sorted(((c4.get(k, 0) - c1.get(k, 0), k) for k in set(c1) | set(c4)), reverse=True)
     log("[batch] kernels whose count grows from B=1 to B=%d: " % BATCH + "; ".join(
         f"{k[:70]} {c1.get(k, 0)} -> {c4.get(k, 0)}" for d, k in grow[:6] if d > 0))
-    return dict(launches=launches, shapes=shapes, fps=BATCH * n / sec, profile=prof)
+    return dict(launches=launches, shapes=shapes, fps=BATCH * n / sec, profile=prof, eng=eng,
+                frames=frames, inits=inits, est=est, n=n, step_ms=sec / n * 1e3,
+                first_s=first_s)
 
 
 def phase_suite(cfg, dev):
@@ -1299,7 +1326,7 @@ def phase_eskf(cfg, dev, root, fast_entry):
     fw = frame(kw)
     step = lambda: vio.step(carry, fw)  # noqa: E731
     step()
-    kl, dev_ms, _ = launch_profile(step)
+    kl, dev_ms, _, _ = launch_profile(step)
     syncs = host_syncs(step)
     t1 = time.perf_counter()
     for _ in range(3):
@@ -1342,6 +1369,210 @@ def phase_eskf(cfg, dev, root, fast_entry):
                 step_launches=sum(kl.values()), step_device_ms=dev_ms, step_ms=step_ms)
 
 
+def replay_metrics(graph, frame):
+    """One replay of a captured step: host syncs (must be 0); under
+    torch.profiler the host's launch calls, the device kernels and their
+    device time, and the replay's span on the device (CUDA events around
+    it in the same profiled run); the hand kernels' launches in that trace,
+    which must equal what the runner adds to their counters per replay;
+    the busy share, device time over that span; and without the profiler,
+    the span of a replay on the device (GRAPH_REPLAYS back to back between
+    two CUDA events) and on the host clock (ending in synchronize)."""
+    import torch
+
+    syncs = host_syncs(lambda: graph.replay(frame))
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in one replay: {sorted(set(syncs))}")
+    for c in _counters().values():
+        c.by_shape.clear()
+    calls, dev_ms, kernels, span_ms = launch_profile(lambda: graph.replay(frame))
+    traced = traced_counts(kernels)
+    per_replay = {k: sum(graph.launches[k].values()) for k in traced}
+    if traced != per_replay:
+        raise AssertionError(f"a replay ran {traced} hand-kernel launches, the runner counts "
+                             f"{per_replay}")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay(frame)
+    b.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / GRAPH_REPLAYS * 1e3
+    return dict(launch_calls=calls, host_calls=sum(calls.values()),
+                device_kernels=sum(v["calls"] for v in kernels.values()), device_ms=dev_ms,
+                span_ms=span_ms, busy=dev_ms / span_ms, traced=traced,
+                replay_ms=a.elapsed_time(b) / GRAPH_REPLAYS, wall_ms=wall_ms,
+                capture_s=graph.capture_s)
+
+
+def replay_line(m):
+    return (f"capture {m['capture_s']:.2f} s; one replay: 0 host syncs, {m['host_calls']} host "
+            f"launch calls (" + ", ".join(f"{k} {v}" for k, v in sorted(m["launch_calls"].items()))
+            + f"), {m['device_kernels']} device kernels and copies (hand kernels in the trace "
+            + ", ".join(f"{k} {v}" for k, v in m["traced"].items()) + ", as counted); under "
+            f"torch.profiler {m['device_ms']:.3f} ms of device time in a {m['span_ms']:.3f} ms "
+            f"span (CUDA events around the profiled replay: busy {m['busy'] * 100:.1f} % of "
+            f"the profiled replay, which the profiler stretches); without it "
+            f"{m['replay_ms']:.3f} ms a replay on the device (CUDA events) and "
+            f"{m['wall_ms']:.3f} ms on the host clock, {GRAPH_REPLAYS} back to back")
+
+
+def check_same(label, gap, shapes_eager, shapes_graph):
+    if not gap <= GRAPH_BOUND_M:
+        raise AssertionError(f"{label}: graphed run is {gap} m from the eager step")
+    if shapes_eager != shapes_graph:
+        raise AssertionError(f"{label}: launches eager {shapes_eager}, graphed {shapes_graph}")
+
+
+def graph_engine(single, batch, frames, init, n):
+    """B = 1 over the slice's frames and B = 4 over the batch's: the eager
+    step loop against the graphed runs of [slice] and [batch]."""
+    import torch
+
+    out = {}
+    eng = single["eng"]
+
+    def eager1():
+        carry, ps = eng.init(init["q0"], init["bg0"], init["gravity"]), []
+        for k in range(n):
+            carry, o = eng.step(carry, {key: v[k] for key, v in frames.items()})
+            ps.append(o.p)
+        return torch.stack(ps).cpu().numpy()
+
+    t0 = time.perf_counter()
+    p_e, launches, shapes = counted("graph eager B=1", eager1)
+    eager_ms = (time.perf_counter() - t0) / n * 1e3
+    gap = float(np.abs(p_e - single["est"]).max())
+    check_same("B=1", gap, shapes, single["shapes"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_sequence(eng.init(init["q0"], init["bg0"], init["gravity"]), frames)
+    torch.cuda.synchronize()
+    graphed_ms = (time.perf_counter() - t0) / n * 1e3
+    (g,) = eng.compiled.graphs.values()
+    m = replay_metrics(g, {k: v[n // 2][None] for k, v in frames.items()})
+    log(f"[graph] B=1, {n} frames: graphed run_sequence against the eager step loop: max "
+        f"position gap {gap:.3g} m (bound {GRAPH_BOUND_M} m); launches identical per call "
+        f"shape (" + ", ".join(f"{k} {v}" for k, v in launches.items()) + f"); a step "
+        f"{eager_ms:.2f} ms eager, {graphed_ms:.2f} ms graphed (host clock over the pass; "
+        f"the first graphed pass, capture included, {single['first_s']:.2f} s)")
+    log(f"[graph] B=1: {replay_line(m)}")
+    out["B=1"] = dict(gap=gap, eager_ms=eager_ms, graphed_ms=graphed_ms, launches=launches,
+                      shapes=shapes, **m)
+
+    # A graphed run's counts are the runner's bookkeeping (a replay calls
+    # no wrapper). One whole graphed run from a fresh engine (the eager
+    # warm-up frame, the capture, the replays) under torch.profiler: the
+    # device must run as many launches of each kernel as the counters say.
+    from vio_msckf_torch.engine import VIOEngine
+
+    teng, tn = VIOEngine(eng.config, eng.device), TRACED_FRAMES
+    tframes = {k: v[:tn] for k, v in frames.items()}
+    (_, dev_ms, table, span_ms), launches, shapes = counted("graph traced", lambda: launch_profile(
+        lambda: teng.run_sequence(teng.init(init["q0"], init["bg0"], init["gravity"]), tframes)))
+    traced_counts(table)
+    log(f"[graph] a graphed run of {tn} frames from a fresh engine, traced whole: launches "
+        f"counted = device launches in the trace (" + ", ".join(
+            f"{k} {v}" for k, v in launches.items()) + f"); {dev_ms:.3f} ms of device time in a "
+        f"{span_ms:.3f} ms span (torch.profiler; the first frame eager, capture included)")
+    out["traced"] = dict(launches=launches, shapes=shapes)
+    del teng
+
+    beng, bframes, nb = batch["eng"], batch["frames"], batch["n"]
+
+    def eager4():
+        carry, ps = beng.init_batch(batch["inits"]), []
+        for k in range(nb):
+            carry, o = beng.step_batch(carry, {key: v[:, k] for key, v in bframes.items()})
+            ps.append(o.p)
+        return torch.stack(ps, dim=1).cpu().numpy()
+
+    t0 = time.perf_counter()
+    p_e, launches, shapes = counted(f"graph eager B={BATCH}", eager4)
+    eager_ms = (time.perf_counter() - t0) / nb * 1e3
+    gaps = [float(np.abs(p_e[b] - batch["est"][b]).max()) for b in range(BATCH)]
+    check_same(f"B={BATCH}", max(gaps), shapes, batch["shapes"])
+    (g,) = beng.compiled.graphs.values()
+    m = replay_metrics(g, {k: v[:, nb // 2] for k, v in bframes.items()})
+    log(f"[graph] B={BATCH}, {nb} frames: graphed run_batch against the eager step_batch "
+        f"loop: max position gap per member " + ", ".join(f"{x:.3g}" for x in gaps)
+        + f" m (bound {GRAPH_BOUND_M} m); launches identical per call shape; a step "
+        f"{eager_ms:.2f} ms eager, {batch['step_ms']:.2f} ms graphed ([batch]'s second pass)")
+    log(f"[graph] B={BATCH}: {replay_line(m)}")
+    out[f"B={BATCH}"] = dict(gaps=gaps, eager_ms=eager_ms, graphed_ms=batch["step_ms"],
+                             launches=launches, shapes=shapes, **m)
+
+    # entry(), the counterpart of __graft_entry__.py:entry(): two calls
+    # (the first captures) on its random frame.
+    from vio_msckf_torch.engine import entry
+
+    fn, (carry, frame) = entry()
+    for _ in range(2):
+        carry, o = fn(carry, frame)
+    pose = o.p.cpu().numpy()
+    if pose.shape != (3,) or not np.isfinite(pose).all():
+        raise AssertionError(f"entry(): pose {pose}")
+    log(f"[graph] entry(): two calls of the captured step at euroc_config() on random "
+        f"752x480 frames, pose finite {pose}")
+    return out
+
+
+def graph_eskf(cfg, dev, root):
+    """The ESKF's eager step against EskfVio.run_sequence over the first
+    ESKF_GRAPH_FRAMES frames of the CLI's tree."""
+    import torch
+    from vio_msckf_torch.data.euroc import EuRoCSequence, bundle_euroc_frames
+    from vio_msckf_torch.eskf import EskfVio
+
+    seq = EuRoCSequence(root, 0.0)
+    imu, _, first, _ = bundle_euroc_frames(seq, cfg)
+    n = ESKF_GRAPH_FRAMES
+    frames = dict(
+        cam0_img=torch.as_tensor(np.stack([seq.load_image(first + k, 0) for k in range(n)]),
+                                 device=dev),
+        cam1_img=torch.as_tensor(np.stack([seq.load_image(first + k, 1) for k in range(n)]),
+                                 device=dev),
+        **{key: torch.as_tensor(imu[key][:n], device=dev)
+           for key in ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")})
+    vio = EskfVio(cfg, device=dev)
+    acc0 = imu["imu_acc"][1][imu["imu_valid"][1]][0]
+
+    def eager():
+        carry, ps = vio.init(acc0), []
+        for k in range(n):
+            carry, o = vio.step(carry, {key: v[k] for key, v in frames.items()})
+            ps.append(o["p"])
+        return torch.stack(ps).cpu().numpy()
+
+    def graphed():
+        return vio.run_sequence(vio.init(acc0), frames)[1]["p"].cpu().numpy()
+
+    t0 = time.perf_counter()
+    p_e, _, shapes_e = counted("graph eskf eager", eager, kernels=("fast_nms",))
+    eager_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    p_g, launches, shapes_g = counted("graph eskf", graphed, kernels=("fast_nms",))
+    first_s = time.perf_counter() - t0
+    gap = float(np.abs(p_e - p_g).max())
+    check_same("eskf", gap, shapes_e, shapes_g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed()
+    graphed_ms = (time.perf_counter() - t0) / n * 1e3
+    (g,) = vio.compiled.graphs.values()
+    m = replay_metrics(g, {k: v[n // 2] for k, v in frames.items()})
+    log(f"[graph] ESKF, {n} frames: EskfVio.run_sequence against the eager step loop: max "
+        f"position gap {gap:.3g} m (bound {GRAPH_BOUND_M} m); fast_nms launches "
+        f"{launches['fast_nms']} both ways; a step {eager_ms:.1f} ms eager, {graphed_ms:.2f} ms "
+        f"graphed (first graphed pass, capture included, {first_s:.2f} s)")
+    log(f"[graph] ESKF: {replay_line(m)}")
+    return dict(gap=gap, eager_ms=eager_ms, graphed_ms=graphed_ms, launches=launches,
+                shapes=shapes_e, graphed_shapes=shapes_g, **m)
+
+
 def _shape_key(name, call):
     """The wrapper's by_shape key of a timed call."""
     if name == "fast_nms":
@@ -1369,11 +1600,19 @@ def main():
     with tempfile.TemporaryDirectory(prefix="vio_euroc_") as root:
         cli_res = phase_cli(cfg, dev, root)
         eskf = phase_eskf(cfg, dev, root, entries[0])
+        t0 = time.perf_counter()
+        graphs = graph_engine(single, batch, frames, init, n)
+        graphs["eskf"] = graph_eskf(cfg, dev, root)
+        log(f"[graph] phase took {time.perf_counter() - t0:.1f} s")
     paths = {"slice": (single["launches"], single["shapes"]),
              "bench": (bench_run["launches"], bench_run["shapes"]),
              "batch": (batch["launches"], batch["shapes"]), **suite_launches, **par_launches,
              **{p: (r["launches"], r["shapes"]) for p, r in cli_res["runs"].items()},
-             "eskf": (eskf["launches"], eskf["shapes"])}
+             "eskf": (eskf["launches"], eskf["shapes"]),
+             **{f"graph eager {k}": ({c: sum(v.values()) for c, v in g["shapes"].items()},
+                                     g["shapes"]) for k, g in graphs.items() if k != "traced"},
+             "graph traced": (graphs["traced"]["launches"], graphs["traced"]["shapes"]),
+             "graph eskf": (graphs["eskf"]["launches"], graphs["eskf"]["graphed_shapes"])}
     for e in entries:
         name = e["name"]
         # The sweep's shapes (call_shapes) are the ones the engine launches.

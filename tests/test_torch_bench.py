@@ -111,18 +111,17 @@ def _check_exit_on_divergence(tcfg, monkeypatch, est):
 
 def _check_profile_models(tcfg):
     """profile_ops.build_model's --tracker-only and --filter-only models
-    (its default, the engine, is VIOEngine.step_batch as run_single drives
-    it) on two sequences of the bench's motion, 2 steps: the tracker alone
+    (its default, the engine, is VIOEngine.step_batch and run_batch as
+    run_single drives them) on two sequences of the bench's motion, 2
+    steps (a step, then a run over one frame): the tracker alone
     holds finite tracks inside the image, and the filter alone, on the
     simulator's tracks, a finite state."""
     carries = {}
     for mode in ("tracker", "filter"):
-        fresh, step, frames = profile_ops.build_model(tcfg, mode, 2, 1.25, "cpu")
+        fresh, step, run, frames = profile_ops.build_model(tcfg, mode, 2, 1.25, "cpu")
         assert all(v.shape[:2] == (2, frames["imu_dt"].shape[1]) for v in frames.values())
-        carry = fresh()
-        for k in range(2):
-            carry = step(carry, {key: v[:, k] for key, v in frames.items()})
-        carries[mode] = carry
+        carry = step(fresh(), {key: v[:, 0] for key, v in frames.items()})
+        carries[mode] = run(carry, 1, 2)
     ts = carries["tracker"]
     assert ts.valid.sum(dim=1).min() > 0
     pts = ts.cam0_pts[ts.valid]

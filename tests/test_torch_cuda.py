@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels against their PyTorch twins, on the card.
+"""The hand-written CUDA kernels against their PyTorch twins, on the card,
+and the compiled step (a CUDA graph of the engine step) against the eager
+step.
 
 The kernels take the batch of sequences the port steps together: FAST a
 (B, H, W) stack of images, LK (B, H_l, W_l) pyramid levels with points
@@ -12,16 +14,21 @@ This file imports no jax, so it also runs on a machine without it:
 (--noconftest: tests/conftest.py configures jax).
 """
 
+import weakref
+
 import numpy as np
 import pytest
 import torch
 from scipy.ndimage import gaussian_filter, map_coordinates
 
+from vio_msckf_torch import kernels
 from vio_msckf_torch.config import euroc_config
-from vio_msckf_torch.data.render import render_sequence
+from vio_msckf_torch.data.render import HOSTILE_AUGS, render_sequence
 from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
+from vio_msckf_torch.engine import VIOEngine
 from vio_msckf_torch.eskf import EskfVio
 from vio_msckf_torch.ops import fast, klt, pyramid, spd
+from vio_msckf_torch.parallel import tiny_config
 
 
 @pytest.fixture
@@ -242,6 +249,62 @@ def _check_spd(cuda, F, m, atol, rtol, n_active=None, lead=None):
     assert torch.all((got - want).abs() <= atol * scale + rtol * want.abs())
 
 
+def _launch_shapes():
+    return {k: dict(w.by_shape) for k, w in kernels.counters().items()}
+
+
+def _check_graph(cuda, n=10):
+    # The compiled step (vio_msckf_torch/graph.py) against the eager step
+    # at tiny_config, at B = 1 (run_sequence) and B = 2 (run_batch; the
+    # second sequence in the hostile world): the same bits and the same
+    # launches per call shape. The eager side gets each frame contiguous,
+    # as the graph's static frame buffers hold it.
+    cfg = tiny_config()
+    seqs = []
+    for augs in (None, HOSTILE_AUGS):
+        sim = SimConfig(duration=1.0 + 0.05 * (n + 0.5), seed=4, amp=(1.5, 1.0, 0.5),
+                        yaw_rate=0.2, wobble_amp=0.1, static_init_time=1.0)
+        seq = simulate_sequence(cfg, sim)
+        frames, init, first = bundle_frames(seq, cfg)
+        R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
+        cam0, cam1 = render_sequence(cfg, R, seq["gt_p"][first:first + n], radius=14.0,
+                                     seed=7, device=cuda, augs=augs)
+        seqs.append((dict(cam0_img=cam0, cam1_img=cam1,
+                          **{k: torch.as_tensor(frames[k][:n], device=cuda)
+                             for k in ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")}), init))
+    for B in (1, 2):
+        frames = {k: torch.stack([f[k] for f, _ in seqs[:B]]) for k in seqs[0][0]}
+        inits = [i for _, i in seqs[:B]]
+        eng = VIOEngine(cfg, cuda)
+        for w in kernels.counters().values():
+            w.by_shape.clear()
+        carry, ps = eng.init_batch(inits), []
+        for k in range(n):
+            carry, out = eng.step_batch(carry, {key: v[:, k].contiguous()
+                                                for key, v in frames.items()})
+            ps.append(out.p)
+        eager = _launch_shapes()
+        for w in kernels.counters().values():
+            w.by_shape.clear()
+        carry_g, outs = eng.run_batch(eng.init_batch(inits), frames)
+        assert _launch_shapes() == eager
+        assert len(eng.compiled.graphs) == 1
+        assert torch.equal(outs.p, torch.stack(ps, dim=1)), B
+        for a, b in zip(carry_g[1].__dict__.values(), carry[1].__dict__.values()):
+            assert torch.equal(a, b)
+        # A second run replays every frame: the same bits again.
+        assert torch.equal(eng.run_batch(eng.init_batch(inits), frames)[1].p, outs.p)
+
+    # The runner holds its engine's step weakly: a dropped engine goes at
+    # once with its graphs and their memory pools, and another engine
+    # captures after it.
+    ref = weakref.ref(eng)
+    del eng
+    assert ref() is None
+    eng = VIOEngine(cfg, cuda)
+    assert torch.equal(eng.run_batch(eng.init_batch(inits), frames)[1].p, outs.p)
+
+
 @pytest.mark.cuda
 def test_kernels_match_twins(cuda):
     # One test item: see tests/test_torch_slice.py on xdist's file order.
@@ -267,3 +330,4 @@ def test_kernels_match_twins(cuda):
     _check_spd(cuda, 8, 120, 2e-3, 2e-3)
     _check_spd(cuda, 4, 80, 2e-3, 2e-3, n_active=[0, 1, 80, 2])
     _check_spd(cuda, 5, 8, 1e-4, 1e-3, n_active=[0, 1, 8, 8, 3])
+    _check_graph(cuda)

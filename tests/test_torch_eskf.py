@@ -236,16 +236,20 @@ def _check_pipeline(workload):
     tv = TEskfVio(tcfg, TEskfConfig(fast_threshold=THRESHOLD, **GRID), device="cpu")
     imu = workload["imu"]
     acc0 = imu["imu_acc"][1][imu["imu_valid"][1]][0]
-    jc, tc = jv.init(acc0), tv.init(acc0)
+    jc = jv.init(acc0)
     jstep = jax.jit(jv.step)
-    jouts, touts = [], []
+    jouts = []
     for k in range(n):
         frame = dict(cam0_img=workload["cam"][0][k], cam1_img=workload["cam"][1][k],
                      **{key: v[k] for key, v in imu.items()})
         jc, jo = jstep(jc, {key: jnp.asarray(v) for key, v in frame.items()})
-        tc, to = tv.step(tc, {key: _t(v) for key, v in frame.items()})
         jouts.append(jax.tree_util.tree_map(np.asarray, jo))
-        touts.append({key: v.numpy() for key, v in to.items()})
+    # The port's side through its compiled-step runner (the eager step on
+    # the CPU), over the same frames stacked.
+    _, to = tv.run_sequence(tv.init(acc0), dict(
+        cam0_img=_t(workload["cam"][0][:n]), cam1_img=_t(workload["cam"][1][:n]),
+        **{key: _t(v[:n]) for key, v in imu.items()}))
+    touts = [{key: v[k].numpy() for key, v in to.items()} for k in range(n)]
     for key in ("n_matches", "n_inliers"):
         np.testing.assert_array_equal([o[key] for o in touts], [o[key] for o in jouts])
     assert min(o["n_matches"] for o in jouts[1:]) >= 3

@@ -13,6 +13,8 @@ reference the port is tested against. The layout mirrors it:
   filter/    the MSCKF estimator core
   frontend/  the stereo feature tracker
   engine.py  front-end + filter, one frame per `step`
+  graph.py   the compiled step: a CUDA graph of one step, captured per
+             shape and replayed per frame (the JAX package's jax.jit)
   eskf/      the second pipeline: rectified ORB stereo + an 18-state ESKF
              (ops/rectify.py, ops/orb.py)
   data/      the trajectory simulator, IMU bundling, the renderer, the

@@ -20,7 +20,9 @@ Default mode prints exactly one JSON line
 with unrounded numbers, and exits nonzero if the trajectory diverged (ATE
 above 0.5 m or not finite). fps is frames over the best of 3 passes, each
 from a fresh carry and ending in torch.cuda.synchronize(), after a first
-untimed pass.
+untimed pass. On a CUDA device the engine replays its step as a CUDA
+graph (vio_msckf_torch/graph.py), captured in the first pass, as the JAX
+bench times `jax.jit(eng.run_sequence)` after its compile.
 
 `--suite` prints five such lines: the default window, V1_02-style fast
 motion, the 30-clone window (MH_04/05-style), the hostile world, and the

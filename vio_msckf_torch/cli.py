@@ -20,6 +20,9 @@ The EuRoC path has three modes, as the JAX CLI does:
   * --preload: decode everything, one host-to-device copy, one pass, then
     a second (warm) pass that prints the compute rate alone;
   * per frame (--ratio > 0 or --view): real-time pacing and the viewer.
+
+Every mode, and the ESKF, replays one captured CUDA graph of the step per
+frame on a CUDA device (graph.CompiledStep: the JAX CLI jits the step).
 """
 
 import argparse
@@ -204,6 +207,7 @@ def run_msckf_euroc(args, log):
     from vio_msckf_torch.data.euroc import EuRoCSequence, bundle_euroc_frames
     from vio_msckf_torch.engine import VIOEngine
     from vio_msckf_torch.runtime import native_loader
+    from vio_msckf_torch.tensors import index_record
     from vio_msckf_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from vio_msckf_torch.utils.logging import StageTimer, maybe_profile
 
@@ -255,8 +259,9 @@ def run_msckf_euroc(args, log):
                 stager = ChunkStager(CHUNK, H, W, device)
                 overflow = []
                 # Full chunks, then the tail frames (< CHUNK) as one shorter
-                # chunk: run_sequence is a loop of step, so a chunk's length
-                # changes nothing but the staging.
+                # chunk: run_sequence replays one captured step per frame,
+                # keyed without the chunk's length, so the last chunk
+                # replays the same graph.
                 bounds = list(range(start_k, n, CHUNK))
 
                 def fill(m):
@@ -312,7 +317,10 @@ def run_msckf_euroc(args, log):
                         frame = dict(cam0_img=_to_device(img0, device),
                                      cam1_img=_to_device(img1, device),
                                      **{key: v[k] for key, v in imu.items()})
-                        carry, out = eng.step(carry, frame)
+                        # One frame through the captured step (jax.jit(eng.step)).
+                        carry, outs = eng.run_sequence(
+                            carry, {key: v[None] for key, v in frame.items()})
+                        out = index_record(outs, 0)
                         p = out.p.cpu().numpy()
                     p_out.append(p)
                     q_out.append(out.q.cpu().numpy())
@@ -349,7 +357,6 @@ def _run_preload(args, log, seq, eng, carry, imu, load, start_k, n, frame_times)
     """Whole-sequence staging: decode everything, one host-to-device copy,
     one pass, one fetch; then the same pass again from the same carry,
     timed alone (`dataset_fps_compute`)."""
-    from vio_msckf_torch.tensors import clone_record
     from vio_msckf_torch.utils.checkpoint import save_checkpoint
 
     device = eng.device
@@ -365,7 +372,7 @@ def _run_preload(args, log, seq, eng, carry, imu, load, start_k, n, frame_times)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_load = time.time() - t0
-    carry0 = tuple(clone_record(c) for c in carry)
+    carry0 = carry              # run_sequence leaves the carry it is given as it was
 
     def run(c):
         t = time.time()
@@ -461,13 +468,14 @@ def write_eskf_plots(prefix, times, outs, log):
 
 
 def _eskf_loop(vio, carry, n, frame_at):
-    """Step the ESKF over n frames; outputs stay on the device until one
-    fetch at the end. Returns (carry, {key: numpy (n, ...)})."""
+    """Step the ESKF over n frames, each through the captured step
+    (EskfVio.run_sequence over one frame); outputs stay on the device
+    until one fetch at the end. Returns (carry, {key: numpy (n, ...)})."""
     outs = []
     for k in range(n):
-        carry, out = vio.step(carry, frame_at(k))
+        carry, out = vio.run_sequence(carry, {key: v[None] for key, v in frame_at(k).items()})
         outs.append(out)
-    return carry, {key: torch.stack([o[key] for o in outs]).cpu().numpy() for key in outs[0]}
+    return carry, {key: torch.cat([o[key] for o in outs]).cpu().numpy() for key in outs[0]}
 
 
 def eskf_euroc(args, log):

@@ -7,16 +7,26 @@ as one sequence (the JAX package gets the same from `jax.vmap`, see
 bench.py:run_batched). `step` and `run_sequence` are the one-sequence API:
 they add a B = 1 axis to the carry and the frame and take it off again.
 
+`run_batch` and `run_sequence` replay the step as a CUDA graph on a CUDA
+device (graph.CompiledStep, the counterpart of the JAX package's
+`jax.jit` over `lax.scan`): captured at a run's first frame of a new
+shape, replayed per frame. `step` and `step_batch` stay eager, like the
+JAX package's unjitted `eng.step`; the graph is held against them.
+`entry()` hands out the captured step at the EuRoC config, as the
+repository's __graft_entry__.py:entry() hands out the jittable one.
+
 A step issues no host synchronisation: every data-dependent loop and
 branch of the reference is a fixed-cap masked loop, a per-sequence select,
 or runs inside a kernel, so the host can queue frames ahead of the device.
 """
 
+import numpy as np
 import torch
 
-from vio_msckf_torch.config import VIOConfig
-from vio_msckf_torch.filter.msckf import MSCKF, stack_outputs
+from vio_msckf_torch.config import VIOConfig, euroc_config
+from vio_msckf_torch.filter.msckf import MSCKF
 from vio_msckf_torch.frontend.tracker import StereoTracker
+from vio_msckf_torch.graph import CompiledStep, capturable_linalg
 from vio_msckf_torch.tensors import index_record, unsqueeze_record
 
 
@@ -34,11 +44,14 @@ class VIOEngine:
     def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32,
                  block_group=None):
         """`block_group`: the filter's feature-block process group
-        (MSCKF); the tracker runs whole on every rank of it."""
+        (MSCKF); the tracker runs whole on every rank of it. With a block
+        group the runs step eagerly: gloo collectives cannot be captured
+        in a CUDA graph."""
         self.config = config
         self.device = torch.device(device)
         self.tracker = StereoTracker(config, self.device)
         self.kf = MSCKF(config, self.device, dtype, block_group)
+        self.compiled = CompiledStep(self.step_batch, capture=block_group is None)
 
     # -- B sequences ---------------------------------------------------------
 
@@ -50,11 +63,13 @@ class VIOEngine:
         state, fmap = self.kf.init_batch(inits)
         return (self.tracker.init(len(inits)), state, fmap)
 
+    @capturable_linalg()
     def step_batch(self, carry, frame):
         """One stereo frame of every sequence. frame keys: cam0_img
         (B,H,W), cam1_img (B,H,W), imu_gyro (B,M,3), imu_acc (B,M,3), imu_dt
         (B,M), imu_valid (B,M). Returns (carry, FilterOutput with leading
-        B)."""
+        B). Its linear algebra is the captured step's (graph.py:
+        capturable_linalg), so the graph and this step agree bit for bit."""
         ts, state, fmap = carry
         ts, msg = self.tracker.step(ts, frame["cam0_img"], frame["cam1_img"],
                                     frame["imu_gyro"], frame["imu_dt"],
@@ -68,13 +83,10 @@ class VIOEngine:
 
     def run_batch(self, carry, frames):
         """Step B sequences over frames stacked (B, T, ...), as bench.py
-        stacks them; returns (carry, outputs (B, T, ...))."""
-        n = frames["cam0_img"].shape[1]
-        outs = []
-        for k in range(n):
-            carry, out = self.step_batch(carry, {key: v[:, k] for key, v in frames.items()})
-            outs.append(out)
-        return carry, stack_outputs(outs)
+        stacks them; returns (carry, outputs (B, T, ...)). On CUDA the
+        step replays its CUDA graph (module docstring); the carry comes
+        back as new tensors."""
+        return self.compiled.run(carry, frames, axis=1)
 
     # -- one sequence ----------------------------------------------------------
 
@@ -101,3 +113,36 @@ class VIOEngine:
         stacked on axis 0)."""
         carry, outs = self.run_batch(_one(carry), {k: v[None] for k, v in frames.items()})
         return _first(carry), index_record(outs, 0)
+
+
+def entry(device="cuda"):
+    """(fn, example_args) for the captured engine step, the counterpart of
+    the repository's __graft_entry__.py:entry(): the full EuRoC-sized VIO
+    engine step (stereo images + IMU bundle -> filter state + pose) at
+    euroc_config(), on random 752x480 images and a static IMU frame.
+    fn(carry, frame) replays one captured step (the first call runs it
+    eagerly and captures it) and returns (carry, FilterOutput)."""
+    cfg = euroc_config()
+    eng = VIOEngine(cfg, device)
+    carry = eng.init()
+    rng = np.random.default_rng(0)
+    W, H = cfg.cam0.resolution
+    M = cfg.filter.imu_per_frame
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    frame = dict(
+        cam0_img=t(rng.uniform(0, 255, (H, W))),
+        cam1_img=t(rng.uniform(0, 255, (H, W))),
+        imu_gyro=t(np.zeros((M, 3))),
+        imu_acc=t(np.tile([0.0, 0.0, 9.81], (M, 1))),
+        imu_dt=t(np.full(M, 0.005)),
+        imu_valid=t(np.ones(M), torch.bool),
+    )
+
+    def fn(carry, frame):
+        carry, outs = eng.run_sequence(carry, {k: v[None] for k, v in frame.items()})
+        return carry, index_record(outs, 0)
+
+    return fn, (carry, frame)

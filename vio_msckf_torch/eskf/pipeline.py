@@ -17,7 +17,9 @@ vio_msckf_tpu/eskf/pipeline.py, after the reference's script pipeline
 
 Fixed shapes throughout: K keypoints per image (grid top-k), K stereo
 matches, K temporal matches, with validity masks instead of dynamic
-lists. A step never synchronises the host.
+lists. A step never synchronises the host, so `run_sequence` replays it
+as a CUDA graph on a CUDA device (graph.CompiledStep, the counterpart of
+the JAX package's `jax.jit(vio.step)`); `step` stays eager.
 """
 
 from dataclasses import dataclass
@@ -33,6 +35,7 @@ from vio_msckf_torch.eskf.filter import (
     init_covariance,
     init_state,
 )
+from vio_msckf_torch.graph import CompiledStep, capturable_linalg
 from vio_msckf_torch.ops.orb import detect_and_describe, match_crosscheck
 from vio_msckf_torch.ops.rectify import rectify_map, stereo_rectify, warp_bilinear
 from vio_msckf_torch.tensors import TensorRecord
@@ -113,6 +116,7 @@ class EskfVio:
             * (self.eskf.pixel_sigma / f) ** 2,
             error_threshold=self.eskf.error_threshold_px / f,
         )
+        self.compiled = CompiledStep(self.step)
 
     # ---------------------------------------------------------------- #
 
@@ -173,11 +177,13 @@ class EskfVio:
         ], dim=-1)
         return FrontendFrame(bits=bits[0], uvd=uvd, valid=ok)
 
+    @capturable_linalg()
     def step(self, carry, frame):
         """One stereo frame end to end. Returns (carry, out): out holds the
         nominal state (p, v, R, a_b, w_b, g), cov_trace, n_matches and
         n_inliers as the JAX package's does, and n_stereo (left keypoints
-        with a gated stereo partner), as tensors on the device."""
+        with a gated stereo partner), as tensors on the device. Its linear
+        algebra is the captured step's (graph.py: capturable_linalg)."""
         state, P, prev, last_R, last_t = carry
 
         cur = self._stereo_frontend(frame["cam0_img"], frame["cam1_img"])
@@ -225,9 +231,6 @@ class EskfVio:
 
     def run_sequence(self, carry, frames):
         """Step over frames stacked on axis 0; returns (carry, outputs
-        stacked on axis 0)."""
-        outs = []
-        for k in range(frames["cam0_img"].shape[0]):
-            carry, out = self.step(carry, {key: v[k] for key, v in frames.items()})
-            outs.append(out)
-        return carry, {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+        stacked on axis 0). On CUDA the step replays its CUDA graph; the
+        carry comes back as new tensors."""
+        return self.compiled.run(carry, frames, axis=0)

@@ -16,37 +16,43 @@ class TensorRecord:
     (a field may also be a list of tensors, e.g. a pyramid)."""
 
     def to(self, device):
-        return _map_fields(self, lambda t: t.to(device))
+        return tree_map(lambda t: t.to(device), self)
 
     def replace(self, **fields):
         return dataclasses.replace(self, **fields)
 
 
-def _map_fields(rec, fn):
-    def one(v):
-        if isinstance(v, torch.Tensor):
-            return fn(v)
-        if isinstance(v, list):
-            return [fn(t) for t in v]
-        return v
+def tree_map(fn, tree):
+    """fn applied to every tensor of a tree of dataclasses, dicts, tuples
+    and lists (the port's records, carries, frames and outputs); any other
+    value is kept as it is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree
 
-    return dataclasses.replace(rec, **{
-        f.name: one(getattr(rec, f.name)) for f in dataclasses.fields(rec)})
+
+def tree_leaves(tree):
+    """The tensors of a tree, in the order tree_map visits them."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
 
 
 def unsqueeze_record(rec):
     """One sequence's record as a batch of one (views, no copy)."""
-    return _map_fields(rec, lambda t: t[None])
-
-
-def clone_record(rec):
-    """A copy of a record whose tensors share no storage with it."""
-    return _map_fields(rec, torch.clone)
+    return tree_map(lambda t: t[None], rec)
 
 
 def index_record(rec, b):
     """Sequence b of a batched record (views, no copy)."""
-    return _map_fields(rec, lambda t: t[b])
+    return tree_map(lambda t: t[b], rec)
 
 
 def _lead(pred, x):

@@ -5,12 +5,14 @@
 
 The counterpart of scripts/batch_sweep.py. B sequences (seeds 4..4+B-1,
 the bench's motion, a 6 s workload each to keep the frames of B = 16 in a
-few GB) advance in lockstep through VIOEngine.run_batch, one launch of
-each hand kernel a step for all of them. Per B, by the bench's rule
-(bench.measure_batch): a first, untimed pass and its worst ATE (the run
-fails above bench.py's 0.5 m), then the best of `--reps` passes, each
-from a fresh carry and ending in synchronize: ms a step, aggregate and
-per-sequence frames/s, and the aggregate over B = 1's, and each hand
+few GB) advance in lockstep through VIOEngine.run_batch, which replays
+one CUDA graph of the step (captured in the first pass; one graph at a
+time, dropped before the next B), one launch of each hand kernel a step
+for all of them. Per B, by the bench's rule (bench.measure_batch): a
+first, untimed pass and its worst ATE (the run fails above bench.py's
+0.5 m), then the best of `--reps` passes, each from a fresh carry and
+ending in synchronize: ms a step, aggregate and per-sequence frames/s,
+the aggregate over B = 1's, the capture's seconds, and each hand
 kernel's launches by call shape over the B's passes; the run fails unless
 those call shapes are call_shapes(cfg, B), the shapes chip_smoke.py holds
 against the twins. Without a CUDA device it raises: its numbers are device
@@ -81,9 +83,12 @@ def main(argv=None):
                                    f"not call_shapes' {sorted(want)}")
         row = dict(batch=B, frames=n, ms_per_step=best / n * 1e3, agg_fps=B * n / best,
                    per_seq_fps=n / best, first_s=first_s, worst_ate_m=float(np.max(ates)),
+                   capture_s=next(iter(eng.compiled.graphs.values())).capture_s,
                    launches=launches)
         rows.append(row)
         print(json.dumps(row), flush=True)
+        # This B's graph and its memory pool go before the next B captures.
+        eng.compiled.clear()
         del frames
 
     for r in rows:

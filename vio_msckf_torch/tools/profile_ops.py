@@ -10,15 +10,25 @@ through the engine (or the tracker alone, or the filter alone on the
 simulator's feature tracks) as one batch of B; then:
 
   * the best of `--reps` whole passes, untimed first pass excluded: ms a
-    step and aggregate frames/s (host clock, ending in synchronize);
+    step and aggregate frames/s (host clock, ending in synchronize). The
+    engine's passes are what its users run, VIOEngine.run_batch, which
+    replays the step's CUDA graph (captured in the first pass); the
+    tracker and the filter alone step eagerly;
   * a window of WINDOW_STEPS (5) warm steps from the middle of the sequence,
     timed without the profiler (best of `--reps`) and then run once under
     torch.profiler (CPU + CUDA activities): per device kernel its name,
     calls, self device time and share of the device time; the device-busy
-    fraction of the window's wall clock (device time under the profiler
-    over the window's time without it); kernel launches a step
-    (cudaLaunchKernel + cuLaunchKernel); and the rows of the three hand
-    kernels (csrc/) by name.
+    fraction of that profiled run (its device time over its span between
+    two CUDA events around it; the profiler slows the host and stretches a
+    graph's replay, so the share is the profiled run's, lower than an
+    unprofiled run's, whose time a step is printed beside it); the host's
+    launch calls a step
+    (cudaLaunchKernel, cuLaunchKernel, cudaGraphLaunch, cudaMemcpyAsync)
+    and the rows of the three hand kernels (csrc/) by name, whose launches
+    must equal their launch counters' over the profiled run. For the
+    engine the window runs twice: graphed (run_batch over the window:
+    a few copies and one graph launch a step) and eager (step_batch per
+    frame: the kernels the graph holds, one launch each).
 
 The JAX script's MFU line has no counterpart: the step runs no model, and
 each hand kernel's share of its roofline bound is chip_smoke.py's. Without
@@ -33,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from vio_msckf_torch import bench
+from vio_msckf_torch import bench, kernels as hand
 from vio_msckf_torch.config import euroc_config
 from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
 from vio_msckf_torch.engine import VIOEngine
@@ -44,7 +54,11 @@ from vio_msckf_torch.frontend.tracker import StereoTracker
 HAND_KERNELS = {"fast_nms": ("fast_nms_kernel",), "lk_pyramid": ("lk_pyramid_kernel",),
                 "spd_gj": ("gj_block", "gj_warp")}
 IMU_KEYS = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")
-WINDOW_STEPS = 5               # a few steps: ~12,300 launches each at B = 1
+WINDOW_STEPS = 5               # a few steps: ~12,300 launches each at B = 1, eager
+# The host's calls that put work on the device: kernels, graphs, copies
+# (CUDA runtime and driver API names; the device's own copy events, e.g.
+# "Memcpy DtoD", are not host calls).
+LAUNCH_APIS = ("LaunchKernel", "GraphLaunch", "Memcpy")
 
 
 def _self_device_us(e):
@@ -53,22 +67,34 @@ def _self_device_us(e):
 
 def launch_profile(step):
     """One call of step() under torch.profiler: ({launch API: calls}, the
-    device time in ms, {device kernel: {"calls", "self_ms"}})."""
+    device time in ms, {device kernel or copy: {"calls", "self_ms"}}, the
+    call's span on the device in ms). The span runs from a CUDA event
+    recorded just before the call to one just after it, in the same
+    profiled run, so device time over span is the share of that span in
+    which the device ran a kernel or a copy."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
         step()
+        b.record()
         torch.cuda.synchronize()
+    span_ms = a.elapsed_time(b)
     events = prof.key_averages()
-    launches = {e.key: e.count for e in events if "LaunchKernel" in e.key}
+    launches = {e.key: e.count for e in events
+                if e.key.startswith("cu") and any(a in e.key for a in LAUNCH_APIS)}
     kernels = {e.key: dict(calls=e.count, self_ms=_self_device_us(e) / 1e3) for e in events
                if str(getattr(e, "device_type", "")).endswith("CUDA")}
-    return launches, sum(k["self_ms"] for k in kernels.values()), kernels
+    return launches, sum(k["self_ms"] for k in kernels.values()), kernels, span_ms
 
 
 def hand_rows(kernels):
-    """The hand kernels' rows of a launch_profile kernel table."""
+    """The hand kernels' rows of a launch_profile kernel table: each
+    wrapper call launches one device kernel, so `calls` is the number of
+    the wrapper's launches that the device ran."""
     return {name: dict(calls=sum(v["calls"] for k, v in kernels.items()
                                  if any(s in k for s in syms)),
                        self_ms=sum(v["self_ms"] for k, v in kernels.items()
@@ -92,10 +118,12 @@ def build_parser():
 
 def build_model(cfg, mode, B, duration, device):
     """What a profiled step runs, for B bench sequences of `duration` s:
-    mode "engine" (VIOEngine.step_batch), "tracker" (the stereo front-end
-    alone on the rendered frames) or "filter" (the MSCKF alone on the
-    simulator's feature tracks). Returns (fresh() -> carry,
-    step(carry, frame) -> carry, frames (B, T, ...))."""
+    mode "engine" (VIOEngine), "tracker" (the stereo front-end alone on
+    the rendered frames) or "filter" (the MSCKF alone on the simulator's
+    feature tracks). Returns (fresh() -> carry, step(carry, frame) ->
+    carry, run(carry, lo, hi) -> carry over frames lo..hi-1, frames
+    (B, T, ...)): step is the eager step; run is the engine's run_batch
+    (the replayed graph) and, for the others, a loop of step."""
     if mode == "filter":
         seqs = [bundle_frames(simulate_sequence(cfg, SimConfig(**{
             **bench.SIM, "duration": duration, "seed": 4 + b})), cfg) for b in range(B)]
@@ -104,20 +132,92 @@ def build_model(cfg, mode, B, duration, device):
                   for k in keys}
         kf = MSCKF(cfg, device)
         inits = [init for _, init, _ in seqs]
-        return lambda: kf.init_batch(inits), lambda c, f: kf.step(c, f)[0], frames
-    frames, inits, _, _ = bench.stack_workloads(
-        [bench.build_workload(cfg, dict(seed=4 + b), duration=duration, device=device)
-         for b in range(B)])
-    if mode == "tracker":
-        tracker = StereoTracker(cfg, device)
+        fresh, step = lambda: kf.init_batch(inits), lambda c, f: kf.step(c, f)[0]
+    else:
+        frames, inits, _, _ = bench.stack_workloads(
+            [bench.build_workload(cfg, dict(seed=4 + b), duration=duration, device=device)
+             for b in range(B)])
+        if mode == "tracker":
+            tracker = StereoTracker(cfg, device)
 
-        def step(ts, f):
-            return tracker.step(ts, f["cam0_img"], f["cam1_img"], f["imu_gyro"],
-                                f["imu_dt"], f["imu_valid"])[0]
+            def step(ts, f):
+                return tracker.step(ts, f["cam0_img"], f["cam1_img"], f["imu_gyro"],
+                                    f["imu_dt"], f["imu_valid"])[0]
 
-        return lambda: tracker.init(B), step, frames
-    eng = VIOEngine(cfg, device)
-    return lambda: eng.init_batch(inits), lambda c, f: eng.step_batch(c, f)[0], frames
+            fresh = lambda: tracker.init(B)  # noqa: E731
+        else:
+            eng = VIOEngine(cfg, device)
+            fresh, step = lambda: eng.init_batch(inits), lambda c, f: eng.step_batch(c, f)[0]
+
+            def run(carry, lo, hi):
+                return eng.run_batch(carry, {k: v[:, lo:hi] for k, v in frames.items()})[0]
+
+            return fresh, step, run, frames
+
+    def run(carry, lo, hi):
+        for k in range(lo, hi):
+            carry = step(carry, {key: v[:, k] for key, v in frames.items()})
+        return carry
+
+    return fresh, step, run, frames
+
+
+def traced_counts(kernels):
+    """Fails unless each hand kernel's launch counter, set to 0 before the
+    profiled run, counted the launches the device ran in it (the kernel
+    table of launch_profile). A replayed graph calls no wrapper: its
+    counts are the runner's (graph.py), and this holds them to the trace."""
+    counted = {k: sum(w.by_shape.values()) for k, w in hand.counters().items()}
+    traced = {k: v["calls"] for k, v in hand_rows(kernels).items()}
+    if counted != traced:
+        raise RuntimeError(f"launch counters {counted}, device launches in the trace {traced}")
+    return counted
+
+
+def window_profile(run, mid, lo, hi, reps, device):
+    """run(mid, lo, hi) timed without the profiler (best of reps), then
+    once under it: per-step numbers, and the kernel table and the hand
+    kernels' rows as totals over the window's steps."""
+    steps = hi - lo
+    run(mid, lo, hi)
+    win_ms = min(bench.timed_passes(lambda: mid, lambda c: run(c, lo, hi), reps, device)) * 1e3
+    for w in hand.counters().values():
+        w.by_shape.clear()
+    launches, device_ms, kernels, span_ms = launch_profile(lambda: run(mid, lo, hi))
+    if not device_ms > 0:
+        raise RuntimeError("torch.profiler recorded no device time on this machine")
+    traced_counts(kernels)
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1]["self_ms"])
+    return dict(steps=steps, window_ms_per_step=win_ms / steps,
+                device_ms_per_step=device_ms / steps,
+                span_ms_per_step=span_ms / steps,
+                busy_fraction=device_ms / span_ms,
+                launches_per_step=sum(launches.values()) / steps,
+                launch_calls={k: v / steps for k, v in launches.items()},
+                device_kernels_per_step=sum(v["calls"] for v in kernels.values()) / steps,
+                hand_kernels=hand_rows(kernels),
+                top_kernels=[dict(name=k, **v) for k, v in rows])
+
+
+def report(name, w, top):
+    """Print one window_profile."""
+    dev_ms = w["device_ms_per_step"]
+    print(f"{name}: {w['window_ms_per_step']:.2f} ms a step without the profiler; under it, "
+          f"device time {dev_ms:.3f} ms in a {w['span_ms_per_step']:.3f} ms span a step = "
+          f"{w['busy_fraction'] * 100:.1f}% busy; "
+          f"{w['device_kernels_per_step']:.0f} device kernels and copies a step")
+    print(f"host launch calls a step: {w['launches_per_step']:.0f} ("
+          + ", ".join(f"{k} {v:.0f}" for k, v in sorted(w["launch_calls"].items())) + ")")
+    hdr = f"{'device kernel':70s} {'calls/step':>10s} {'ms/step':>9s} {'%':>6s}"
+    print(hdr + "\n" + "-" * len(hdr))
+    steps = w["steps"]            # the kernel rows hold the window's totals
+    for r in w["top_kernels"][:top]:
+        print(f"{r['name'][:70]:70s} {r['calls'] / steps:10.1f} {r['self_ms'] / steps:9.4f} "
+              f"{r['self_ms'] / steps / max(dev_ms, 1e-12) * 100:6.2f}")
+    print("hand kernels (csrc/):")
+    for k, v in w["hand_kernels"].items():
+        print(f"  {k:12s} {v['calls'] / steps:5.1f} calls a step, {v['self_ms'] / steps:.4f} ms "
+              f"a step, {v['self_ms'] / steps / max(dev_ms, 1e-12) * 100:.2f}% of the device time")
 
 
 def main(argv=None):
@@ -129,65 +229,48 @@ def main(argv=None):
     device = bench.setup("cuda")
     cfg = euroc_config()
     mode = "filter" if args.filter_only else "tracker" if args.tracker_only else "engine"
-    fresh, step, frames = build_model(cfg, mode, args.batch, args.duration, device)
+    fresh, step, run, frames = build_model(cfg, mode, args.batch, args.duration, device)
     B, n = frames["imu_dt"].shape[:2]
-    at = lambda k: {key: v[:, k] for key, v in frames.items()}  # noqa: E731
-
-    def run(carry, lo=0, hi=n):
-        for k in range(lo, hi):
-            carry = step(carry, at(k))
-        return carry
 
     t0 = time.perf_counter()
-    run(fresh())
+    run(fresh(), 0, n)
     torch.cuda.synchronize()
     print(f"{mode} B={B}: {n} frames, first pass {time.perf_counter() - t0:.1f}s", flush=True)
-    best = min(bench.timed_passes(fresh, run, args.reps, device))
+    best = min(bench.timed_passes(fresh, lambda c: run(c, 0, n), args.reps, device))
 
     # The window: WINDOW_STEPS warm steps from the middle, from one carry.
     lo = max(0, min(n // 2, n - WINDOW_STEPS))
     hi = min(n, lo + WINDOW_STEPS)
     mid = run(fresh(), 0, lo)
-    window = lambda c=mid: run(c, lo, hi)  # noqa: E731
-    window()
-    win_ms = min(bench.timed_passes(lambda: mid, window, args.reps, device)) * 1e3
-    launches, device_ms, kernels = launch_profile(window)
-    if not device_ms > 0:
-        raise RuntimeError("torch.profiler recorded no device time on this machine")
-    steps = hi - lo
-    busy = device_ms / win_ms
-    per_step = sum(launches.values()) / steps
-    rows = sorted(kernels.items(), key=lambda kv: -kv[1]["self_ms"])
-    hand = hand_rows(kernels)
+
+    def eager(c, a, b):
+        for k in range(a, b):
+            c = step(c, {key: v[:, k] for key, v in frames.items()})
+        return c
+
+    windows = {}
+    if mode == "engine":
+        windows["graphed"] = window_profile(run, mid, lo, hi, args.reps, device)
+    windows["eager"] = window_profile(eager, mid, lo, hi, args.reps, device)
     smi = card()
 
     print(f"\n=== {mode} B={B}: {n} frames; {smi} ===")
     print(f"warm pass {best * 1e3:.1f} ms ({best * 1e3 / n:.2f} ms/step, "
-          f"{B * n / best:.1f} agg fps; best of {args.reps})")
-    print(f"window: frames {lo}..{hi - 1}, {win_ms / steps:.2f} ms a step without the profiler; "
-          f"device time {device_ms / steps:.3f} ms a step = {busy * 100:.1f}% busy")
-    print(f"kernel launches a step: {per_step:.0f} ("
-          + ", ".join(f"{k} {v / steps:.0f}" for k, v in sorted(launches.items())) + ")")
-    hdr = f"{'device kernel':70s} {'calls':>7s} {'self ms':>9s} {'%':>6s}"
-    print(hdr + "\n" + "-" * len(hdr))
-    for name, v in rows[: args.top]:
-        print(f"{name[:70]:70s} {v['calls']:7d} {v['self_ms']:9.3f} "
-              f"{v['self_ms'] / max(device_ms, 1e-12) * 100:6.2f}")
-    print("\nhand kernels (csrc/):")
-    for name, v in hand.items():
-        print(f"  {name:12s} {v['calls'] / steps:5.1f} calls a step, {v['self_ms'] / steps:.4f} ms "
-              f"a step, {v['self_ms'] / max(device_ms, 1e-12) * 100:.2f}% of the device time")
+          f"{B * n / best:.1f} agg fps; best of {args.reps}"
+          + ("; graphed)" if mode == "engine" else ")"))
+    print(f"window: frames {lo}..{hi - 1}")
+    for name, w in windows.items():
+        print()
+        report(name if name == "graphed" else "eager (the kernels the graph holds)"
+               if mode == "engine" else name, w, args.top)
 
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(label=mode, batch=B, frames=n, card=smi,
                            ms_per_step=best * 1e3 / n, agg_fps=B * n / best,
-                           window=[lo, hi], window_ms_per_step=win_ms / steps,
-                           device_ms_per_step=device_ms / steps, busy_fraction=busy,
-                           launches_per_step=per_step,
-                           launch_calls={k: v / steps for k, v in launches.items()},
-                           hand_kernels=hand,
-                           top_kernels=[dict(name=k, **v) for k, v in rows[: args.top]]),
+                           window=[lo, hi],
+                           **{k: dict(w, top_kernels=w["top_kernels"][: args.top])
+                              for k, w in windows.items()}),
                       f, indent=1)
         print("json ->", args.json)
     return 0
