@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --four-cards     # [parallel] (c) alone, on 4 GPUs
 
 Phases, one line each; any failure raises and exits nonzero:
   1. device   - requires CUDA (no CPU fallback); prints the card's name and
@@ -57,12 +58,28 @@ Phases, one line each; any failure raises and exits nonzero:
                 bound), block peers against each other, ATE per sequence;
                 the filter alone in 8 gloo ranks as 2 x 4 (two butterfly
                 rounds; simulated tracks, seeds 1 and 2, 30 frames) against
-                the unsharded filter on the card (1e-4 m); one NCCL rank at world
-                size 1 through the block all-gather over the slice's first
-                16 frames (1e-4 m, 0 host syncs); dryrun_multichip(4) under
-                gloo. Backend, staged host copies and ms per step of each
-                run; ranks sharing one card give no scaling number. The
-                ranks' launches are merged per call shape.
+                the unsharded filter on the card (1e-4 m); (b) the filter
+                alone, MSCKF.run_sequence replayed, against that eager
+                kf.step loop (1e-6 m) and one replay profiled; (a) one
+                NCCL rank at world size 1 with a block group of one,
+                the sharded engine step captured with its all-gathers and
+                replayed through make_multichip_engine_step's step over
+                the slice's first 16 frames, against the same step eager
+                (1e-6 m) and the slice (1e-4 m), one replay profiled (0
+                host syncs, trace = counts, NCCL kernels counted: at one
+                rank NCCL copies without a kernel); (c) with four or more
+                cards, NCCL one rank per card, graphed: the engine 2 x 2
+                on the suite's pair against the unsharded pair (5e-3 m)
+                and the same mesh eager (1e-6 m), the filter 1 x 4 against
+                the unsharded filter (1e-4 m), each rank's replay
+                profiled (NCCL kernels > 0), dryrun_multichip(4) under
+                NCCL ("not run" on one card; `--four-cards` runs only
+                this, where every shape it may launch is one the one-card
+                run holds against the twins: four_card_shapes);
+                dryrun_multichip(4) under gloo. Backend, staged host
+                copies and ms per step of each run; ranks sharing one
+                card give no scaling number. The ranks' launches are
+                merged per call shape.
  10. cli      - the user's entry point, `python -m vio_msckf_torch --path`
                 (vio_msckf_torch.cli.main): the bench sequence written as
                 an EuRoC mav0/ tree by the port's writer, then run chunked
@@ -139,9 +156,9 @@ import math
 import os
 import shutil
 import struct
+import sys
 import tempfile
 import time
-import warnings
 import zlib
 
 import numpy as np
@@ -153,7 +170,8 @@ from vio_msckf_torch.bench import (ATE_BOUND_M, FAST_MOTION, SIM, build_workload
 from vio_msckf_torch.bench import SUITE_BATCH as BATCH
 from vio_msckf_torch.data.render import BENCH_WORLD
 from vio_msckf_torch.tools.batch_sweep import call_shapes
-from vio_msckf_torch.tools.profile_ops import launch_profile, traced_counts
+from vio_msckf_torch.tools.profile_ops import (host_syncs, launch_profile, replay_profile,
+                                              traced_counts)
 
 CLI_CHUNK = 32                 # the CLI's default --chunk
 CLI_PARTIAL = 110              # frames of the --preload and per-frame runs
@@ -191,6 +209,7 @@ TPU_ANCHOR_ATE = {"fast motion": 0.1015, "hostile": 0.1767, "30 clones": 0.0535,
 # sharded engine's bound is the reference's own (tests/test_parallel.py:77,142).
 PAR_ENGINE_MESH = (2, 2)
 PAR_FILTER_MESH = (2, 4)
+PAR_FOUR_FILTER_MESH = (1, 4)      # (c): both sequences on one replica of 4 cards
 PAR_FILTER_FRAMES = 30
 PAR_SEEDS = (1, 2)
 NCCL_FRAMES = 16
@@ -199,7 +218,7 @@ PAR_BOUND_M = 5e-3
 # apart (1.1e-6 m on an NVIDIA H100 80GB HBM3 at 700 W), so held far
 # tighter than the reference's bound.
 PAR_FILTER_BOUND_M = 1e-4
-PAR_TIMEOUT_S = 300
+PAR_TIMEOUT_S = 240
 
 # [graph]: graphed against eager. The bound asks for f32 roundoff at most;
 # the graph launches the eager step's kernels on the same inputs, so 0 is
@@ -719,23 +738,6 @@ def counted(path, run, kernels=KERNELS):
     return result, launches, shapes
 
 
-def host_syncs(step):
-    """Host synchronisations made by one call of step()."""
-    import torch
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return [str(w.message).splitlines()[0] for w in caught
-            if "called a synchronizing" in str(w.message)]
-
-
 def trajectory_metrics(name, est, gt, n):
     """ATE/RPE of one trajectory; fails on a wrong shape, a non-finite
     value or an ATE above the bench's bound."""
@@ -888,14 +890,14 @@ def phase_batch(cfg, dev, single, bench_fps):
                 first_s=first_s)
 
 
-def phase_suite(cfg, dev):
-    from vio_msckf_torch.config import FilterConfig
+def suite_pair(cfg, dev):
+    """Fast motion and the hostile world (seed 4, rendered with
+    HOSTILE_AUGS by the port) as one B = 2 batch over SUITE_DEPTH frames
+    through VIOEngine.run_batch, counted as the "suite" path: (names,
+    workloads, ground truths, n, engine, outputs, launches, shapes, s)."""
     from vio_msckf_torch.data.render import HOSTILE_AUGS
     from vio_msckf_torch.engine import VIOEngine
 
-    out = {}
-    # Fast motion and the hostile world (seed 4, rendered with
-    # HOSTILE_AUGS by the port) as one B = 2 batch.
     names = ("fast motion", "hostile")
     workloads = [build_workload(cfg, FAST_MOTION, device=dev),
                  build_workload(cfg, render_augs=HOSTILE_AUGS, device=dev)]
@@ -906,7 +908,15 @@ def phase_suite(cfg, dev):
     t0 = time.perf_counter()
     (_, outs), launches, shapes = counted(
         "suite", lambda: eng.run_batch(eng.init_batch(inits), frames))
-    sec = time.perf_counter() - t0
+    return names, workloads, gts, n, eng, outs, launches, shapes, time.perf_counter() - t0
+
+
+def phase_suite(cfg, dev):
+    from vio_msckf_torch.config import FilterConfig
+    from vio_msckf_torch.engine import VIOEngine
+
+    out = {}
+    names, workloads, gts, n, eng, outs, launches, shapes, sec = suite_pair(cfg, dev)
     est = outs.p.cpu().numpy()
     for b, name in enumerate(names):
         ate, rpe = trajectory_metrics(name, est[b], gts[b], n)
@@ -950,12 +960,14 @@ def phase_suite(cfg, dev):
 
 
 def rank_reports(out_dir, nprocs):
-    """Each rank's positions by batch row and its report (worker.py)."""
+    """Each rank's positions by batch row ("p", and "p_eager" where the
+    worker ran --eager) and its report (worker.py)."""
     held, reports = {}, []
     for r in range(nprocs):
         z = np.load(os.path.join(out_dir, f"rank{r}.npz"))
-        for b, p in zip(z["rows"], z["p"]):
-            held.setdefault(int(b), []).append(p)
+        for key in ("p", "p_eager"):
+            for b, p in zip(z["rows"], z[key] if key in z.files else ()):
+                held.setdefault(key, {}).setdefault(int(b), []).append(p)
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             reports.append(json.load(f))
     return held, reports
@@ -970,8 +982,11 @@ def merge_launches(reports, shapes):
 
 
 def run_ranks(label, nprocs, args, backend="gloo"):
-    """The worker on nprocs ranks (gloo: all sharing the card): merged
-    rows and the reports; fails when block peers disagree."""
+    """The worker on nprocs ranks (gloo: all sharing card 0; NCCL: rank r
+    on card r): the rows merged over the ranks, those of the eager pass
+    (None without --eager) and the reports. Fails when block peers
+    disagree, and when a rank of an NCCL run did not capture its step or
+    one of a gloo run did."""
     from vio_msckf_torch.parallel.distributed import Ranks
 
     t0 = time.perf_counter()
@@ -980,30 +995,162 @@ def run_ranks(label, nprocs, args, backend="gloo"):
               ["--out", d, "--device", "cuda", "--backend", backend, *args]).wait(PAR_TIMEOUT_S)
         held, reports = rank_reports(d, nprocs)
     sec = time.perf_counter() - t0
-    peer_gap = max(float(np.abs(p - ps[0]).max()) for ps in held.values() for p in ps)
-    merged = np.stack([held[b][0] for b in sorted(held)])
+    rows = held["p"]
+    peer_gap = max(float(np.abs(p - ps[0]).max()) for ps in rows.values() for p in ps)
+    merged = np.stack([rows[b][0] for b in sorted(rows)])
+    eager = (np.stack([held["p_eager"][b][0] for b in sorted(rows)]) if "p_eager" in held
+             else None)
     staged = {k: max(r["staged_per_step"].get(k, 0) for r in reports)
               for k in ("to_host", "to_device")}
     ms = [r["step_ms"] for r in reports]
+    captured = {r["captured"] for r in reports}
+    where = sorted({r["device"] for r in reports})
     log(f"[parallel] {label}: {nprocs} ranks, backend {reports[0]['backend']} on "
-        f"{reports[0]['device']}, {sec:.1f} s with start-up; {min(ms):.1f}-{max(ms):.1f} ms a "
-        f"step per rank ({'ranks sharing one H100' if backend == 'gloo' else 'ranks'}: "
-        f"not a scaling number); host copies staged "
-        f"for gloo per step and rank: {staged['to_host']:g} to the host, "
+        f"{', '.join(where)}, {'graphed' if True in captured else 'eager'}, {sec:.1f} s with "
+        f"start-up; {min(ms):.1f}-{max(ms):.1f} ms a step per rank"
+        + (f" (capture {max(r['capture_s'] for r in reports):.2f} s)" if True in captured else "")
+        + (f", eager {min(r['eager_step_ms'] for r in reports):.1f}-"
+           f"{max(r['eager_step_ms'] for r in reports):.1f} ms" if eager is not None else "")
+        + (" (ranks sharing one H100: not a scaling number)" if len(where) < nprocs else "")
+        + f"; host copies staged for gloo per step and rank: {staged['to_host']:g} to the host, "
         f"{staged['to_device']:g} back; block peers agree within {peer_gap:.3g} m")
     if not peer_gap <= 1e-6:
         raise AssertionError(f"{label}: block peers differ by {peer_gap} m")
-    return merged, reports
+    if captured != {backend == "nccl"}:
+        raise AssertionError(f"{label}: {backend} ranks captured: {sorted(captured)}")
+    return merged, eager, reports
+
+
+def filter_reference(cfg, dev, seeds, frames):
+    """The simulated tracks of `seeds` (6 s each) through the unsharded
+    filter on the card, B = len(seeds): the eager kf.step loop over the
+    first `frames` frames, then MSCKF.run_sequence (the filter alone,
+    replayed; bound GRAPH_BOUND_M) over the same frames. Returns
+    (eager positions (B, T, 3), the graphed run's record)."""
+    import torch
+    from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
+    from vio_msckf_torch.filter.msckf import MSCKF
+
+    seqs = [bundle_frames(simulate_sequence(cfg, SimConfig(duration=6.0, seed=s)), cfg)
+            for s in seeds]
+    T = min(frames, *(len(f["imu_dt"]) for f, _, _ in seqs))
+    feed = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid", "feat_ids", "feat_obs", "feat_valid")
+    tracks = {key: torch.as_tensor(np.stack([f[key][:T] for f, _, _ in seqs]), device=dev)
+              for key in feed}
+    kf = MSCKF(cfg, dev)
+    inits = [init for _, init, _ in seqs]
+
+    def eager():
+        carry, ps = kf.init_batch(inits), []
+        for k in range(T):
+            carry, out = kf.step(carry, {key: v[:, k] for key, v in tracks.items()})
+            ps.append(out.p)
+        return torch.stack(ps, dim=1).cpu().numpy()
+
+    t0 = time.perf_counter()
+    ref, _, shapes_e = counted("filter eager", eager, kernels=("spd_gj",))
+    eager_ms = (time.perf_counter() - t0) / T * 1e3
+    t0 = time.perf_counter()
+    p_g, launches, shapes_g = counted("filter alone", lambda: kf.run_sequence(
+        kf.init_batch(inits), tracks)[1].p.cpu().numpy(), kernels=("spd_gj",))
+    first_s = time.perf_counter() - t0
+    gap = float(np.abs(p_g - ref).max())
+    check_same("the filter alone", gap, shapes_e, shapes_g)
+    (g,) = kf.compiled.graphs.values()
+    m = replay_metrics(g, {k: v[:, T // 2] for k, v in tracks.items()})
+    return ref, dict(gap=gap, eager_ms=eager_ms, first_s=first_s, launches=launches,
+                     shapes=shapes_g, T=T, **m)
+
+
+def four_card_shapes(cfg):
+    """The call shapes the four-card runs may launch: the engine's at B =
+    1 and 2 sequences a rank, and the gate's at those B with the features
+    split over block 2 and 4 (tools.batch_sweep.call_shapes). The one-card
+    run holds each against the twin."""
+    want = {k: set() for k in KERNELS}
+    for B in (1, 2):
+        for k, keys in call_shapes(cfg, B).items():
+            want[k] |= keys
+        for nb in (2, 4):
+            want["spd_gj"] |= {(F // nb, m, c) for F, m, c in call_shapes(cfg, B)["spd_gj"]}
+    return want
+
+
+def phase_four_cards(cfg, pair, shapes):
+    """[parallel] (c): NCCL, one rank per card, every sharded step graphed
+    (needs 4 cards): the engine as replica 2 x block 2 on the suite's pair
+    against the suite's unsharded B = 2 run (PAR_BOUND_M) and against the
+    same mesh stepped eagerly (GRAPH_BOUND_M); the filter alone as 1 x 4
+    (two butterfly rounds across cards) against the unsharded filter
+    (PAR_FILTER_BOUND_M); each rank's replay profiled (NCCL kernels in it
+    must be > 0); dryrun_multichip(4) under NCCL. The ranks' launches are
+    added into `shapes`."""
+    import torch
+    from vio_msckf_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+
+    def check(label, reports, graphed, eager, ref, bound):
+        gap_eager = float(np.abs(graphed - eager).max())
+        gap_ref = float(np.abs(graphed - ref).max())
+        rep = [r["replay"] for r in reports]
+        log(f"[parallel] (c) {label}: graphed against the same mesh stepped eagerly "
+            f"{gap_eager:.3g} m (bound {GRAPH_BOUND_M} m), against the unsharded run "
+            f"{gap_ref:.3g} m (bound {bound} m); one replay per rank: 0 host syncs, "
+            + ", ".join(f"{x['host_calls']}" for x in rep) + " host launch calls, "
+            + ", ".join(f"{x['device_kernels']}" for x in rep) + " device kernels, NCCL kernels "
+            + ", ".join(f"{x['nccl_kernels']}" for x in rep) + " ("
+            + "; ".join(sorted({n[:60] for x in rep for n in x["nccl_names"]})) + ") taking "
+            + ", ".join(f"{x['nccl_ms']:.3f}" for x in rep) + " ms of "
+            + ", ".join(f"{x['device_ms']:.3f}" for x in rep) + " ms device time (profiled), "
+            "hand kernels in the trace " + ", ".join(
+                f"{k} {v}" for k, v in rep[0]["traced"].items()) + " as counted; a replay "
+            + ", ".join(f"{x['replay_ms']:.3f}" for x in rep) + " ms unprofiled (CUDA events)")
+        if not (np.isfinite(graphed).all() and gap_eager <= GRAPH_BOUND_M and gap_ref <= bound):
+            raise AssertionError(f"{label}: {gap_eager} m from eager, {gap_ref} m from unsharded")
+        if not all(x["nccl_kernels"] > 0 for x in rep):
+            raise AssertionError(f"{label}: a replay ran no NCCL kernel: the collectives are "
+                                 f"not in the graph")
+
+    nr, nb = PAR_ENGINE_MESH
+    specs = [dict(sim=dict(SIM, **FAST_MOTION)), dict(sim=SIM, hostile=True)]
+    merged, eager, reports = run_ranks(
+        f"(c) engine {nr} x {nb} over NCCL", nr * nb,
+        ["--replica", nr, "--block", nb, "--mode", "engine", "--frames", pair["n"], "--eager",
+         "--profile", "--sequences", json.dumps(specs)], "nccl")
+    merge_launches(reports, shapes)
+    check(f"engine {nr} x {nb}", reports, merged, eager, np.stack(pair["est"]), PAR_BOUND_M)
+
+    nr, nb = PAR_FOUR_FILTER_MESH
+    seqs = [dict(sim=dict(duration=6.0, seed=s)) for s in PAR_SEEDS]
+    merged, eager, reports = run_ranks(
+        f"(c) filter {nr} x {nb} over NCCL", nr * nb,
+        ["--replica", nr, "--block", nb, "--mode", "filter", "--frames", PAR_FILTER_FRAMES,
+         "--eager", "--profile", "--sequences", json.dumps(seqs)], "nccl")
+    merge_launches(reports, shapes)
+    ref, _ = filter_reference(cfg, torch.device("cuda", 0), PAR_SEEDS, PAR_FILTER_FRAMES)
+    check(f"filter {nr} x {nb}", reports, merged, eager, ref, PAR_FILTER_BOUND_M)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        dry = dryrun_multichip(4, device="cuda", backend="nccl", timeout=PAR_TIMEOUT_S)
+    log(f"[parallel] (c) {said.getvalue().strip()}; {time.perf_counter() - t0:.1f} s")
+    if "nccl, captured and replayed" not in said.getvalue():
+        raise AssertionError(f"dryrun_multichip(4, nccl): {said.getvalue()}")
+    for k in KERNELS:
+        for shape, n in dry.get(k, {}).items():
+            shapes[k][shape] = shapes[k].get(shape, 0) + n
+    log(f"[parallel] (c) four cards took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_parallel(cfg, dev, suite, single, frames):
-    """Scale-out: the sharded engine and filter in gloo ranks on the card,
-    one NCCL rank at world size 1, and the dry run."""
+    """Scale-out: the sharded engine and filter in gloo ranks on the card;
+    (a) one NCCL rank at world size 1, graphed; (b) the filter alone,
+    graphed; (c) NCCL over four cards where the machine has them; the dry
+    run."""
     import torch
     import torch.distributed as dist
     from vio_msckf_torch import comm
-    from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
-    from vio_msckf_torch.filter.msckf import MSCKF
     from vio_msckf_torch.parallel import make_mesh, make_multichip_engine_step
     from vio_msckf_torch.parallel.distributed import free_port
     from vio_msckf_torch.parallel.dryrun import dryrun_multichip
@@ -1031,10 +1178,11 @@ def phase_parallel(cfg, dev, suite, single, frames):
     log(f"[parallel] NCCL with 2 ranks on {torch.cuda.device_count()} card(s): {nccl_two} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 1. The suite's B = 2 pair, one sequence per replica, block = 2.
+    # 1. The suite's B = 2 pair, one sequence per replica, block = 2, gloo
+    # ranks sharing the card: the eager sharded step.
     nr, nb = PAR_ENGINE_MESH
     specs = [dict(sim=dict(SIM, **FAST_MOTION)), dict(sim=SIM, hostile=True)]
-    merged, reports = run_ranks(
+    merged, _, reports = run_ranks(
         f"engine {nr} x {nb}", nr * nb,
         ["--replica", nr, "--block", nb, "--mode", "engine", "--frames", n,
          "--sequences", json.dumps(specs)])
@@ -1050,65 +1198,91 @@ def phase_parallel(cfg, dev, suite, single, frames):
 
     # 2. The filter alone, block = 4: two butterfly rounds.
     nr, nb = PAR_FILTER_MESH
-    merged, reports = run_ranks(
+    merged, _, reports = run_ranks(
         f"filter {nr} x {nb}", nr * nb,
         ["--replica", nr, "--block", nb, "--mode", "filter", "--frames", PAR_FILTER_FRAMES,
          "--sequences", json.dumps(filter_seqs)])
     merge_launches(reports, shapes)
-    seqs = [bundle_frames(simulate_sequence(cfg, SimConfig(duration=6.0, seed=s)), cfg)
-            for s in PAR_SEEDS]
-    T = merged.shape[1]
-    feed = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid", "feat_ids", "feat_obs", "feat_valid")
-    kf = MSCKF(cfg, dev)
-    carry = kf.init_batch([init for _, init, _ in seqs])
-    ps = []
-    for k in range(T):
-        carry, out = kf.step(carry, {key: torch.as_tensor(np.stack([f[key][k] for f, _, _ in seqs]),
-                                                          device=dev) for key in feed})
-        ps.append(out.p)
-    ref = torch.stack(ps, dim=1).cpu().numpy()
+    ref, alone = filter_reference(cfg, dev, PAR_SEEDS, PAR_FILTER_FRAMES)
     gap = float(np.abs(merged - ref).max())
-    log(f"[parallel] filter {nr} x {nb}, seeds {PAR_SEEDS}, {T} frames: max position gap to "
-        f"the unsharded filter on the card {gap:.3g} m (bound {PAR_FILTER_BOUND_M} m)")
+    log(f"[parallel] filter {nr} x {nb}, seeds {PAR_SEEDS}, {alone['T']} frames: max position "
+        f"gap to the unsharded filter on the card {gap:.3g} m (bound {PAR_FILTER_BOUND_M} m)")
     if not (np.isfinite(merged).all() and gap <= PAR_FILTER_BOUND_M):
         raise AssertionError(f"sharded filter: {gap} m from the unsharded filter")
     for k in KERNELS:
         if not sum(shapes[k].values()) > 0:
             raise AssertionError(f"kernel {k} was never launched on the parallel path")
 
-    # 3. One NCCL rank, a block group of one: the all-gather path.
+    # (b) The filter alone, graphed: MSCKF.run_sequence against the eager
+    # kf.step loop that gave the reference above.
+    log(f"[parallel] (b) the filter alone, B = {len(PAR_SEEDS)}, {alone['T']} frames: "
+        f"MSCKF.run_sequence against the eager kf.step loop: max position gap "
+        f"{alone['gap']:.3g} m (bound {GRAPH_BOUND_M} m); spd_gj launches "
+        f"{alone['launches']['spd_gj']} both ways; a step {alone['eager_ms']:.2f} ms eager, "
+        f"the graphed run {alone['first_s']:.2f} s with its capture; {replay_line(alone)}")
+
+    # (a) One NCCL rank, a block group of one: the sharded engine step
+    # graphed with its all-gathers inside, against the same step eager.
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(1, 1)
         step, eng = make_multichip_engine_step(cfg, mesh, device=dev)
         sl = {k: v[:NCCL_FRAMES][None] for k, v in frames.items()}
+        init = single["init"]
 
-        def run():
-            carry, ps = eng.init_batch([single["init"]]), []
+        def eager():
+            carry, ps = eng.init_batch([init]), []
             for k in range(NCCL_FRAMES):
-                carry, out = step(carry, {key: v[:, k] for key, v in sl.items()})
-                ps.append(out.p)
-            return carry, torch.stack(ps, dim=1)
+                carry, o = eng.step_batch(carry, {key: v[:, k] for key, v in sl.items()})
+                ps.append(o.p)
+            return torch.stack(ps, dim=1).cpu().numpy()
 
+        def graphed():
+            carry, ps = eng.init_batch([init]), []
+            for k in range(NCCL_FRAMES):
+                carry, o = step(carry, {key: v[:, k] for key, v in sl.items()})
+                ps.append(o.p)
+            return torch.stack(ps, dim=1).cpu().numpy()
+
+        t0 = time.perf_counter()
+        p_e, _, shapes_e = counted("parallel nccl eager", eager)
+        eager_ms = (time.perf_counter() - t0) / NCCL_FRAMES * 1e3
         comm.STAGED.clear()
         t0 = time.perf_counter()
-        (carry, p), launches, nccl_shapes = counted("parallel nccl", run)
+        p_g, launches, nccl_shapes = counted("parallel nccl", graphed)
         sec = time.perf_counter() - t0
-        gap = float(np.abs(p[0].cpu().numpy() - single["est"][:NCCL_FRAMES]).max())
-        frame = {key: v[:, NCCL_FRAMES // 2] for key, v in sl.items()}
-        syncs = host_syncs(lambda: step(carry, frame))
-        log(f"[parallel] NCCL, world size 1, block group of one: {NCCL_FRAMES} frames in "
-            f"{sec:.2f} s ({sec / NCCL_FRAMES * 1e3:.1f} ms a step with the first), max gap to "
-            f"the slice {gap:.3g} m (bound 1e-4 m); host syncs in one warm sharded step: "
-            f"{len(syncs)}; host copies staged: {sum(comm.STAGED.values())}; launches "
-            + ", ".join(f"{k} {v}" for k, v in launches.items()))
-        if syncs or not gap <= 1e-4:
-            raise AssertionError(f"NCCL world 1: {len(syncs)} host syncs, {gap} m from the slice")
+        gap = float(np.abs(p_g - p_e).max())
+        check_same("NCCL world 1", gap, shapes_e, nccl_shapes)
+        gap_slice = float(np.abs(p_g[0] - single["est"][:NCCL_FRAMES]).max())
+        (g,) = eng.compiled.graphs.values()
+        m = replay_metrics(g, {key: v[:, NCCL_FRAMES // 2] for key, v in sl.items()})
+        log(f"[parallel] (a) NCCL, world size 1, block group of one, {NCCL_FRAMES} frames through "
+            f"the replaying step of make_multichip_engine_step: max gap to the same step eager "
+            f"{gap:.3g} m (bound {GRAPH_BOUND_M} m), to the slice {gap_slice:.3g} m (bound 1e-4 "
+            f"m); launches identical per call shape (" + ", ".join(
+                f"{k} {v}" for k, v in launches.items()) + f"); a step {eager_ms:.1f} ms eager, "
+            f"{sec / NCCL_FRAMES * 1e3:.1f} ms graphed with the first (capture and a carry "
+            f"copy a call); host copies staged: {sum(comm.STAGED.values())}; NCCL kernels in "
+            f"a replay {m['nccl_kernels']} (at one rank NCCL copies on the device: the gathers "
+            f"feed every gate and update, so the equal bits show them replayed); "
+            f"{replay_line(m)}")
+        if not gap_slice <= 1e-4 or sum(comm.STAGED.values()):
+            raise AssertionError(f"NCCL world 1: {gap_slice} m from the slice, "
+                                 f"{sum(comm.STAGED.values())} staged copies")
+        del g
+        eng.compiled.clear()            # before the group: NCCL's shutdown waits for it
     finally:
         dist.destroy_process_group()
 
-    # 4. The dry run: one engine step at EuRoC shapes over 4 gloo ranks.
+    # (c) Four cards, NCCL, one rank per card.
+    if torch.cuda.device_count() >= 4:
+        phase_four_cards(cfg, pair, shapes)
+    else:
+        log(f"[parallel] (c) NCCL over four cards, one rank per card: "
+            f"{torch.cuda.device_count()} card: not run")
+
+    # The dry run: one engine step at EuRoC shapes over 4 gloo ranks.
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         dry = dryrun_multichip(4, device="cuda", backend="gloo", timeout=PAR_TIMEOUT_S)
@@ -1117,6 +1291,7 @@ def phase_parallel(cfg, dev, suite, single, frames):
     log(f"[parallel] phase took {time.perf_counter() - t_phase:.1f} s")
     return {"parallel": ({k: sum(v.values()) for k, v in shapes.items()}, shapes),
             "parallel nccl": (launches, nccl_shapes),
+            "parallel filter alone": (alone["launches"], alone["shapes"]),
             "parallel dryrun": ({k: sum(dry.get(k, {}).values()) for k in KERNELS},
                                 {k: dry.get(k, {}) for k in KERNELS})}
 
@@ -1370,48 +1545,24 @@ def phase_eskf(cfg, dev, root, fast_entry):
 
 
 def replay_metrics(graph, frame):
-    """One replay of a captured step: host syncs (must be 0); under
-    torch.profiler the host's launch calls, the device kernels and their
-    device time, and the replay's span on the device (CUDA events around
-    it in the same profiled run); the hand kernels' launches in that trace,
-    which must equal what the runner adds to their counters per replay;
-    the busy share, device time over that span; and without the profiler,
-    the span of a replay on the device (GRAPH_REPLAYS back to back between
-    two CUDA events) and on the host clock (ending in synchronize)."""
-    import torch
-
-    syncs = host_syncs(lambda: graph.replay(frame))
-    if syncs:
-        raise AssertionError(f"{len(syncs)} host syncs in one replay: {sorted(set(syncs))}")
-    for c in _counters().values():
-        c.by_shape.clear()
-    calls, dev_ms, kernels, span_ms = launch_profile(lambda: graph.replay(frame))
-    traced = traced_counts(kernels)
-    per_replay = {k: sum(graph.launches[k].values()) for k in traced}
-    if traced != per_replay:
-        raise AssertionError(f"a replay ran {traced} hand-kernel launches, the runner counts "
-                             f"{per_replay}")
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    a.record()
-    for _ in range(GRAPH_REPLAYS):
-        graph.replay(frame)
-    b.record()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / GRAPH_REPLAYS * 1e3
-    return dict(launch_calls=calls, host_calls=sum(calls.values()),
-                device_kernels=sum(v["calls"] for v in kernels.values()), device_ms=dev_ms,
-                span_ms=span_ms, busy=dev_ms / span_ms, traced=traced,
-                replay_ms=a.elapsed_time(b) / GRAPH_REPLAYS, wall_ms=wall_ms,
-                capture_s=graph.capture_s)
+    """One replay of a captured step (tools.profile_ops.replay_profile):
+    host syncs (must be 0); under torch.profiler the host's launch calls,
+    the device kernels and their device time, NCCL's kernels among them,
+    and the replay's span on the device (CUDA events around it in the same
+    profiled run); the hand kernels' launches in that trace, which must
+    equal what the runner adds to their counters per replay; the busy
+    share, device time over that span; and without the profiler, the span
+    of a replay on the device (GRAPH_REPLAYS back to back between two CUDA
+    events) and on the host clock (ending in synchronize)."""
+    m = replay_profile(graph, frame, GRAPH_REPLAYS)
+    return dict(m, busy=m["device_ms"] / m["span_ms"], capture_s=graph.capture_s)
 
 
 def replay_line(m):
     return (f"capture {m['capture_s']:.2f} s; one replay: 0 host syncs, {m['host_calls']} host "
             f"launch calls (" + ", ".join(f"{k} {v}" for k, v in sorted(m["launch_calls"].items()))
-            + f"), {m['device_kernels']} device kernels and copies (hand kernels in the trace "
+            + f"), {m['device_kernels']} device kernels and copies ({m['nccl_kernels']} of "
+            f"NCCL's; hand kernels in the trace "
             + ", ".join(f"{k} {v}" for k, v in m["traced"].items()) + ", as counted); under "
             f"torch.profiler {m['device_ms']:.3f} ms of device time in a {m['span_ms']:.3f} ms "
             f"span (CUDA events around the profiled replay: busy {m['busy'] * 100:.1f} % of "
@@ -1631,9 +1782,13 @@ def main():
             if c["launches"] <= 0:
                 raise AssertionError(f"{name} call shape {_shape_key(name, c)} was not "
                                      f"launched on the {c['path']} path")
-        # Every shape a path launched was held against the twin in phase 4.
+        # Every shape a path launched was held against the twin in phase 4,
+        # and so is every shape the four-card run may launch.
         checked = ({_shape_key(name, c) for c in e["calls"]}
                    | {tuple(c["key"]) for c in e["sweep_calls"]})
+        if not four_card_shapes(cfg)[name] <= checked:
+            raise AssertionError(f"{name}: four-card shapes "
+                                 f"{sorted(four_card_shapes(cfg)[name] - checked)} unchecked")
         for p, (_, s) in paths.items():
             unchecked = sorted(set(s[name]) - checked)
             if unchecked:
@@ -1646,5 +1801,40 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def main_four_cards():
+    """`python3 chip_smoke.py --four-cards`: [parallel] (c) alone, on a
+    machine with four cards (the one-card run holds every call shape it
+    may launch against the twin: four_card_shapes)."""
+    card = phase_device()
+    import torch
+    from vio_msckf_torch.config import euroc_config
+
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError(f"--four-cards needs 4 cards, this machine has "
+                           f"{torch.cuda.device_count()}")
+    phase_build()
+    cfg = euroc_config()
+    names, _, gts, n, _, outs, _, _, _ = suite_pair(cfg, torch.device("cuda", 0))
+    shapes = {k: {} for k in KERNELS}
+    phase_four_cards(cfg, dict(names=names, est=outs.p.cpu().numpy(), gts=gts, n=n), shapes)
+    want = four_card_shapes(cfg)
+    for k in KERNELS:
+        if not set(shapes[k]) <= want[k] or not shapes[k]:
+            raise AssertionError(f"{k}: four cards launched {sorted(shapes[k])}, expected a "
+                                 f"subset of {sorted(want[k])}")
+    log("[parallel] (c) launches: " + "; ".join(
+        f"{k} " + ", ".join(f"{list(s_)} x{v}" for s_, v in sorted(shapes[k].items()))
+        for k in KERNELS))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--four-cards"]:
+        main_four_cards()
+    elif sys.argv[1:]:
+        raise SystemExit(f"usage: python3 chip_smoke.py [--four-cards]; got {sys.argv[1:]}")
+    else:
+        main()

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their PyTorch twins, on the card,
-and the compiled step (a CUDA graph of the engine step) against the eager
-step.
+and the compiled step (a CUDA graph of the engine step, and of the
+sharded engine step with its NCCL collectives) against the eager step.
 
 The kernels take the batch of sequences the port steps together: FAST a
 (B, H, W) stack of images, LK (B, H_l, W_l) pyramid levels with points
@@ -253,13 +253,9 @@ def _launch_shapes():
     return {k: dict(w.by_shape) for k, w in kernels.counters().items()}
 
 
-def _check_graph(cuda, n=10):
-    # The compiled step (vio_msckf_torch/graph.py) against the eager step
-    # at tiny_config, at B = 1 (run_sequence) and B = 2 (run_batch; the
-    # second sequence in the hostile world): the same bits and the same
-    # launches per call shape. The eager side gets each frame contiguous,
-    # as the graph's static frame buffers hold it.
-    cfg = tiny_config()
+def _tiny_sequences(cuda, cfg, n):
+    """Two sequences of n frames at tiny_config rendered on the card (the
+    second in the hostile world): [(frames (T, ...), init), ...]."""
     seqs = []
     for augs in (None, HOSTILE_AUGS):
         sim = SimConfig(duration=1.0 + 0.05 * (n + 0.5), seed=4, amp=(1.5, 1.0, 0.5),
@@ -272,24 +268,41 @@ def _check_graph(cuda, n=10):
         seqs.append((dict(cam0_img=cam0, cam1_img=cam1,
                           **{k: torch.as_tensor(frames[k][:n], device=cuda)
                              for k in ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")}), init))
+    return seqs
+
+
+def _eager_run(eng, inits, frames, n):
+    """The eager step_batch over n frames (each contiguous, as the graph's
+    static frame buffers hold it): (carry, positions (B, n, 3))."""
+    carry, ps = eng.init_batch(inits), []
+    for k in range(n):
+        carry, out = eng.step_batch(carry, {key: v[:, k].contiguous()
+                                            for key, v in frames.items()})
+        ps.append(out.p)
+    return carry, torch.stack(ps, dim=1)
+
+
+def _check_graph(cuda, n=10):
+    # The compiled step (vio_msckf_torch/graph.py) against the eager step
+    # at tiny_config, at B = 1 (run_sequence) and B = 2 (run_batch; the
+    # second sequence in the hostile world): the same bits and the same
+    # launches per call shape.
+    cfg = tiny_config()
+    seqs = _tiny_sequences(cuda, cfg, n)
     for B in (1, 2):
         frames = {k: torch.stack([f[k] for f, _ in seqs[:B]]) for k in seqs[0][0]}
         inits = [i for _, i in seqs[:B]]
         eng = VIOEngine(cfg, cuda)
         for w in kernels.counters().values():
             w.by_shape.clear()
-        carry, ps = eng.init_batch(inits), []
-        for k in range(n):
-            carry, out = eng.step_batch(carry, {key: v[:, k].contiguous()
-                                                for key, v in frames.items()})
-            ps.append(out.p)
+        carry, p = _eager_run(eng, inits, frames, n)
         eager = _launch_shapes()
         for w in kernels.counters().values():
             w.by_shape.clear()
         carry_g, outs = eng.run_batch(eng.init_batch(inits), frames)
         assert _launch_shapes() == eager
         assert len(eng.compiled.graphs) == 1
-        assert torch.equal(outs.p, torch.stack(ps, dim=1)), B
+        assert torch.equal(outs.p, p), B
         for a, b in zip(carry_g[1].__dict__.values(), carry[1].__dict__.values()):
             assert torch.equal(a, b)
         # A second run replays every frame: the same bits again.
@@ -303,6 +316,42 @@ def _check_graph(cuda, n=10):
     assert ref() is None
     eng = VIOEngine(cfg, cuda)
     assert torch.equal(eng.run_batch(eng.init_batch(inits), frames)[1].p, outs.p)
+
+
+def _check_nccl_graph(cuda, n=6):
+    # The sharded engine step under NCCL at world size 1, a block group of
+    # one (its collectives are all-gathers over that group), at
+    # tiny_config: captured with the collectives inside and replayed, bit
+    # for bit against the eager sharded step; then the engine is dropped
+    # (its weak reference dies at once) and another captures on the same
+    # group.
+    import torch.distributed as dist
+    from vio_msckf_torch.parallel import make_mesh
+    from vio_msckf_torch.parallel.distributed import free_port
+
+    cfg = tiny_config()
+    frames, init = _tiny_sequences(cuda, cfg, n)[0]
+    frames = {k: v[None] for k, v in frames.items()}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        group = make_mesh(1, 1).block_group
+        eng = VIOEngine(cfg, cuda, block_group=group)
+        assert eng.compiled.capture
+        carry, p = _eager_run(eng, [init], frames, n)
+        carry_g, outs = eng.run_batch(eng.init_batch([init]), frames)
+        assert len(eng.compiled.graphs) == 1
+        assert torch.equal(outs.p, p)
+        for a, b in zip(carry_g[1].__dict__.values(), carry[1].__dict__.values()):
+            assert torch.equal(a, b)
+        ref = weakref.ref(eng)
+        del eng
+        assert ref() is None
+        eng = VIOEngine(cfg, cuda, block_group=group)
+        assert torch.equal(eng.run_batch(eng.init_batch([init]), frames)[1].p, p)
+        eng.compiled.clear()            # before the group: NCCL's shutdown waits for it
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda
@@ -331,3 +380,4 @@ def test_kernels_match_twins(cuda):
     _check_spd(cuda, 4, 80, 2e-3, 2e-3, n_active=[0, 1, 80, 2])
     _check_spd(cuda, 5, 8, 1e-4, 1e-3, n_active=[0, 1, 8, 8, 3])
     _check_graph(cuda)
+    _check_nccl_graph(cuda)

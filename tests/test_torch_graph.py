@@ -22,9 +22,12 @@ the runner's own code. Checked, with identical bits against the eager
   (c') a step that swaps its carry's leaves and outputs one of them: the
       copies into the static carry read the values from before them;
   (d) EskfVio.run_sequence against its eager step loop;
-  (e) an engine or an ESKF and its runner form no reference cycle: with
-      Python's cyclic collector off, dropping the owner frees it (on a
-      card, with its graphs and their memory pools).
+  (e) an engine, an ESKF or a filter and its runner form no reference
+      cycle: with Python's cyclic collector off, dropping the owner frees
+      it (on a card, with its graphs and their memory pools);
+  (f) the filter alone, MSCKF.run_sequence on the simulator's feature
+      tracks over 4 frames, against its eager `step` loop (the 4-clone
+      window pruned).
 
 The eager step is held against the JAX package by test_torch_slice.py,
 test_torch_batch.py and test_torch_eskf.py; this file compiles no JAX.
@@ -46,6 +49,7 @@ from vio_msckf_torch.data.render import render_sequence
 from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
 from vio_msckf_torch.engine import VIOEngine
 from vio_msckf_torch.eskf import EskfConfig, EskfVio
+from vio_msckf_torch.filter.msckf import MSCKF
 from vio_msckf_torch.graph import CompiledStep
 from vio_msckf_torch.parallel import tiny_config
 from vio_msckf_torch.tensors import tree_leaves, tree_map
@@ -53,6 +57,7 @@ from vio_msckf_torch.tensors import tree_leaves, tree_map
 N_FRAMES = 6
 HALF = 4
 IMU_KEYS = ("imu_gyro", "imu_acc", "imu_dt", "imu_valid")
+FEED = IMU_KEYS + ("feat_ids", "feat_obs", "feat_valid")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -110,8 +115,9 @@ def _workload(cfg):
     R = seq["gt_R_i_w"][first:first + n].transpose(0, 2, 1)
     cam0, cam1 = render_sequence(cfg, R, seq["gt_p"][first:first + n], radius=14.0, seed=7,
                                  chunk=n, device="cpu")
-    return dict(cam0_img=cam0, cam1_img=cam1,
-                **{k: torch.as_tensor(frames[k][:n]) for k in IMU_KEYS}), init
+    images = dict(cam0_img=cam0, cam1_img=cam1,
+                  **{k: torch.as_tensor(frames[k][:n]) for k in IMU_KEYS})
+    return images, {k: torch.as_tensor(frames[k][:n]) for k in FEED}, init
 
 
 def _eager(step, carry, frames, lo, hi):
@@ -233,20 +239,40 @@ def _check_eskf(cfg, frames):
     return vio
 
 
+def _check_filter(cfg, tracks, init):
+    # (f) one sequence (B = 1) over 4 frames: the window of 4 clones
+    # fills and is pruned.
+    kf = MSCKF(cfg, device="cpu")
+    frames = {k: v[None, :HALF] for k, v in tracks.items()}
+    carry, outs = kf.init_batch([init]), []
+    for k in range(HALF):
+        carry, out = kf.step(carry, {key: v[:, k] for key, v in frames.items()})
+        outs.append(out)
+    c_g, o_g = kf.run_sequence(kf.init_batch([init]), frames)
+    assert len(kf.compiled.graphs) == 1
+    for name in o_g.__dataclass_fields__:
+        assert torch.equal(getattr(o_g, name),
+                           torch.stack([getattr(o, name) for o in outs], dim=1)), name
+    _assert_equal_trees(c_g, carry)
+    assert int(c_g[0].n_clones[0]) < cfg.filter.max_cam_state_size      # pruned
+    return kf
+
+
 def test_compiled_step_matches_eager_loop(cpu_graphs):
     cfg = _config()
-    frames, init = _workload(cfg)
+    frames, tracks, init = _workload(cfg)
     eng = VIOEngine(cfg, device="cpu")
     _check_engine(eng, frames, init)
     _check_counts(eng, frames, init)
     _check_static_aliases()
-    # (d), then (e): the runner holds its owner's step weakly.
+    # (d) and (f), then (e): the runner holds its owner's step weakly.
     enabled = gc.isenabled()
     gc.disable()
     try:
-        refs = [weakref.ref(eng), weakref.ref(_check_eskf(cfg, frames))]
+        refs = [weakref.ref(eng), weakref.ref(_check_eskf(cfg, frames)),
+                weakref.ref(_check_filter(cfg, tracks, init))]
         del eng
-        assert [r() for r in refs] == [None, None]
+        assert [r() for r in refs] == [None, None, None]
     finally:
         if enabled:
             gc.enable()

@@ -16,14 +16,19 @@ and a rank gating on its local gammas alone moves them ~3e-4 m), and block
 peers must be bit-identical, as the lower-index-first TSQR stack order
 keeps them. The same item checks that the parallel modules import nothing
 of JAX, the PNG readers' fallback order (the native loader, else PIL,
-else data/png.py), and that the tracker drops births past its table as the
-reference's does (the engine at `tiny_config` overflows it).
+else data/png.py), that the tracker drops births past its table as the
+reference's does (the engine at `tiny_config` overflows it), and the
+capture rule of a sharded step (graph.py): captured without a block group
+and over NCCL, eager over gloo, checked without starting NCCL. The ranks
+step through the worker's runner (`compiled.run`), which over gloo is
+the eager loop.
 """
 
 import dataclasses
 import json
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -31,12 +36,15 @@ import torch
 from PIL import Image
 
 from test_torch_slice import FORBIDDEN, PKG, REPO, _imports
+from vio_msckf_torch import comm
 from vio_msckf_torch.data import euroc as teuroc
 from vio_msckf_torch.data.png import encode_png_gray
 from vio_msckf_torch.data.render import BENCH_WORLD, render_sequence
 from vio_msckf_torch.data.simulator import SimConfig, bundle_frames, simulate_sequence
 from vio_msckf_torch.filter.msckf import MSCKF
+from vio_msckf_torch.engine import VIOEngine
 from vio_msckf_torch.frontend.tracker import StereoTracker
+from vio_msckf_torch.graph import CompiledStep
 from vio_msckf_torch.parallel import tiny_config
 from vio_msckf_torch.parallel.distributed import Ranks
 from vio_msckf_torch.runtime import native_loader
@@ -177,6 +185,25 @@ def _check_tracker_drops_births_past_table():
         np.testing.assert_allclose(ts.cam1_pts[0].numpy(), np.asarray(js.cam1_pts), atol=1e-3)
 
 
+def _check_capture_rule():
+    # Stand-in groups answer get_backend, so NCCL need not start: no group
+    # and NCCL capture, gloo steps eagerly, another backend has no rule;
+    # the engine and the filter pass their block group to their runners.
+    nccl, gloo = SimpleNamespace(backend="nccl"), SimpleNamespace(backend="gloo")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.distributed, "get_backend", lambda group: group.backend)
+        step = lambda carry, frame: (carry, frame)  # noqa: E731
+        runners = [CompiledStep(step, g) for g in (None, nccl, gloo)]
+        assert [r.capture for r in runners] == [True, True, False]
+        with pytest.raises(ValueError, match="mpi"):
+            comm.capturable(SimpleNamespace(backend="mpi"))
+        cfg = tiny_config()
+        assert MSCKF(cfg, "cpu", block_group=nccl).compiled.capture
+        assert not MSCKF(cfg, "cpu", block_group=gloo).compiled.capture
+        assert VIOEngine(cfg, "cpu", block_group=nccl).compiled.capture
+        assert not VIOEngine(cfg, "cpu", block_group=gloo).compiled.capture
+
+
 def test_sharded_filter_matches_unsharded(tmp_path, monkeypatch):
     ranks = _start(tmp_path, "tiny", 2, 2, 20, TINY_BUDGET)
     threads = torch.get_num_threads()
@@ -188,6 +215,7 @@ def test_sharded_filter_matches_unsharded(tmp_path, monkeypatch):
         _check_tiny_config_is_the_reference()
         _check_png_fallback_order(tmp_path, monkeypatch)
         _check_tracker_drops_births_past_table()
+        _check_capture_rule()
     finally:
         torch.set_num_threads(threads)
         ranks.wait(300)

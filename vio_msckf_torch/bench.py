@@ -30,12 +30,15 @@ motion, the 30-clone window (MH_04/05-style), the hostile world, and the
 alone at B = 1 except the batch.
 
 `--scaling` runs the filter step at euroc_config() over 8 simulated
-sequences (no renderer) in 1, 2, 4 and 8 ranks of
-vio_msckf_torch.parallel.worker, replicas only (strong scaling), and
-prints one JSON line with the table. Ranks that each own a card use NCCL;
-ranks beyond the number of cards share them over gloo, and such a row
-measures no scaling. `--device cpu` runs every rank on the CPU (gloo), as
-bench.py's virtual CPU mesh does.
+sequences (no renderer) in ranks of vio_msckf_torch.parallel.worker,
+replicas only (strong scaling), and prints one JSON line with the table:
+on a host with several cards 1, 2, 4 and 8 ranks up to one rank a card
+(NCCL); on one card 1 rank (NCCL) and 2, 4 and 8 ranks sharing it over
+gloo, rows that measure no scaling. A replica-only step issues no
+collective, so on a card every rank replays the step's CUDA graph
+whatever the backend (graph.py's rule keys on the block group, and there
+is none). `--device cpu` runs 1, 2, 4 and 8 ranks on the CPU (gloo,
+eager), as bench.py's virtual CPU mesh does.
 
 Logs go to stderr, JSON lines to stdout.
 """
@@ -230,9 +233,15 @@ def run_batched(cfg, name, batch, reps=3, device="cuda"):
 def run_scaling(reps=2, duration=12.0, device="cuda", config="euroc", frames=0,
                 ranks=SCALING_RANKS, out_dir=None):
     """Strong-scaling table of the replica-sharded filter step: 8
-    simulated sequences (feature tracks, no renderer) over 1, 2, 4 and 8
-    ranks of parallel/worker.py, one sequence block per replica, no
-    block axis. Each rank count runs a first pass and `reps` timed ones;
+    simulated sequences (feature tracks, no renderer) over `ranks` ranks
+    of parallel/worker.py, one sequence block per replica, no block axis;
+    with more than one card, only the rank counts up to one rank a card.
+    Ranks with a card each run NCCL, ranks sharing one card run gloo
+    (`backend`, `ranks_per_card`). No block group means no collective in
+    the step, so on a card every rank replays the filter step's CUDA graph
+    (MSCKF.run_sequence) under either backend, and on the CPU every rank
+    steps eagerly: a row whose `captured` breaks that rule raises.
+    Each rank count runs a first pass and `reps` timed ones;
     a pass takes the slowest rank's time, agg_fps = sequences x frames /
     the best pass. `config` "tiny" and `frames` > 0 cut the run for tests;
     with `out_dir` each rank count's rank files (positions, reports) stay
@@ -245,6 +254,8 @@ def run_scaling(reps=2, duration=12.0, device="cuda", config="euroc", frames=0,
         kernels.build()                 # once, before the ranks load it
     specs = [dict(sim=dict(SIM, duration=duration, seed=4 + b))
              for b in range(SCALING_SEQUENCES)]
+    if cards > 1:
+        ranks = [n for n in ranks if n <= cards]
     rows = []
     for n in ranks:
         backend = "nccl" if n <= cards else "gloo"
@@ -260,22 +271,30 @@ def run_scaling(reps=2, duration=12.0, device="cuda", config="euroc", frames=0,
             for r in range(n):
                 with open(os.path.join(d, f"rank{r}.json")) as f:
                     reports.append(json.load(f))
+        captured = [rep["captured"] for rep in reports]
+        if captured != [device.type == "cuda"] * n:
+            raise RuntimeError(f"{n} ranks without a block group on {device.type}: "
+                               f"captured {captured}")
         steps = reports[0]["steps"]
         best = min(max(rep["pass_s"][i] for rep in reports) for i in range(reps))
         per_card = math.ceil(n / cards) if cards else None
         rows.append(dict(devices=n, agg_fps=SCALING_SEQUENCES * steps / best,
-                         backend=reports[0]["backend"], ranks_per_card=per_card))
+                         backend=reports[0]["backend"], ranks_per_card=per_card,
+                         captured=captured[0],
+                         step_ms=max(rep["step_ms"] for rep in reports),
+                         capture_s=max(rep["capture_s"] or 0.0 for rep in reports)))
         shared = (f"{per_card} ranks share each card: not a scaling number"
                   if per_card and per_card > 1 else
                   "ranks share the host's cores" if not cards else "one rank per card")
-        log(f"[scaling] {n} ranks ({rows[-1]['backend']}; {shared}): "
-            f"{rows[-1]['agg_fps']:.1f} agg fps over {steps} frames "
-            f"({time.perf_counter() - t0:.0f}s with start-up)")
+        r = rows[-1]
+        log(f"[scaling] {n} ranks ({r['backend']}; {shared}; "
+            f"{'graphed' if r['captured'] else 'eager'}): {r['agg_fps']:.1f} agg fps over "
+            f"{steps} frames, {r['step_ms']:.2f} ms a step on the slowest rank (first pass), "
+            f"capture {r['capture_s']:.2f} s ({time.perf_counter() - t0:.0f}s with start-up)")
 
     base = rows[0]["agg_fps"]
-    table = [dict(devices=r["devices"], agg_fps=r["agg_fps"], speedup=r["agg_fps"] / base,
-                  efficiency=r["agg_fps"] / (base * r["devices"]), backend=r["backend"],
-                  ranks_per_card=r["ranks_per_card"]) for r in rows]
+    table = [dict(r, speedup=r["agg_fps"] / base, efficiency=r["agg_fps"] / (base * r["devices"]))
+             for r in rows]
     where = f"{cards} GPU(s)" if cards else "the CPU"
     print(json.dumps({"metric": f"replica scaling over torch.distributed ranks on {where}, "
                                 "PyTorch port (filter step)", "table": table}), flush=True)

@@ -10,7 +10,9 @@ they add a B = 1 axis to the carry and the frame and take it off again.
 `run_batch` and `run_sequence` replay the step as a CUDA graph on a CUDA
 device (graph.CompiledStep, the counterpart of the JAX package's
 `jax.jit` over `lax.scan`): captured at a run's first frame of a new
-shape, replayed per frame. `step` and `step_batch` stay eager, like the
+shape, replayed per frame. An engine with a `block_group` (parallel/) is
+captured with its collectives when the group is NCCL's and steps eagerly
+when it is gloo's (comm.capturable). `step` and `step_batch` stay eager, like the
 JAX package's unjitted `eng.step`; the graph is held against them.
 `entry()` hands out the captured step at the EuRoC config, as the
 repository's __graft_entry__.py:entry() hands out the jittable one.
@@ -44,14 +46,15 @@ class VIOEngine:
     def __init__(self, config: VIOConfig, device="cuda", dtype=torch.float32,
                  block_group=None):
         """`block_group`: the filter's feature-block process group
-        (MSCKF); the tracker runs whole on every rank of it. With a block
-        group the runs step eagerly: gloo collectives cannot be captured
-        in a CUDA graph."""
+        (MSCKF); the tracker runs whole on every rank of it. The runs
+        replay a CUDA graph without a group and with an NCCL group, its
+        collectives captured inside; with a gloo group they step eagerly,
+        since gloo stages through the host (graph.py)."""
         self.config = config
         self.device = torch.device(device)
         self.tracker = StereoTracker(config, self.device)
         self.kf = MSCKF(config, self.device, dtype, block_group)
-        self.compiled = CompiledStep(self.step_batch, capture=block_group is None)
+        self.compiled = CompiledStep(self.step_batch, block_group)
 
     # -- B sequences ---------------------------------------------------------
 

@@ -9,6 +9,12 @@ and selected per sequence, so a step makes no host synchronisation.
 State and frames carry a leading batch axis B: B independent sequences
 advance in the same launches, each with its own decisions, as under the
 JAX package's `jax.vmap(step)`.
+
+`MSCKF.run_sequence` replays the step as a CUDA graph on a CUDA device
+(graph.CompiledStep; the JAX package's `jax.jit(kf.step)` under
+`lax.scan`), with the engine's rule for a block group: captured without
+one and over NCCL, eager over gloo. `step` stays eager; the graph is held
+against it.
 """
 
 from dataclasses import dataclass
@@ -31,6 +37,7 @@ from vio_msckf_torch.filter.features import add_observations, clear_features
 from vio_msckf_torch.filter.update import stack_update, tsqr_reduce_update
 from vio_msckf_torch.filter.triangulation import triangulate_all, check_motion_all
 from vio_msckf_torch.filter.pruning import compact_lanes, maybe_prune
+from vio_msckf_torch.graph import CompiledStep, capturable_linalg
 from vio_msckf_torch.tensors import TensorRecord, gather_rows, select
 
 
@@ -205,6 +212,7 @@ class MSCKF:
         self.device = torch.device(device)
         self.dtype = dtype
         self.params = make_params(config, self.device, dtype)
+        self.compiled = CompiledStep(self.step, block_group)
 
     def init_batch(self, inits):
         """Fresh state for len(inits) sequences; each entry is a dict whose
@@ -221,10 +229,12 @@ class MSCKF:
             R_imu_cam0=state.R_imu_cam0, t_cam0_imu=state.t_cam0_imu,
             gravity=state.gravity), new_fmap
 
+    @capturable_linalg()
     def step(self, carry, frame):
         """One frame of every sequence. `frame` holds imu_gyro (B,M,3),
         imu_acc (B,M,3), imu_dt (B,M), imu_valid (B,M), feat_ids (B,K),
-        feat_obs (B,K,4), feat_valid (B,K)."""
+        feat_obs (B,K,4), feat_valid (B,K). Its linear algebra is the
+        captured step's (graph.capturable_linalg)."""
         state, fmap = carry
         params = self.params
         state = propagate(state, params, frame["imu_gyro"], frame["imu_acc"],
@@ -244,19 +254,6 @@ class MSCKF:
 
     def run_sequence(self, carry, frames):
         """Step over frames stacked on axis 1 (B, T, ...); returns (carry,
-        outputs (B, T, ...))."""
-        n = next(iter(frames.values())).shape[1]
-        outs = []
-        for k in range(n):
-            carry, out = self.step(carry, {key: v[:, k] for key, v in frames.items()})
-            outs.append(out)
-        return carry, stack_outputs(outs)
-
-
-def stack_outputs(outs):
-    """Per-frame batched FilterOutputs (B, ...) -> one with a frame axis
-    after the batch axis (B, T, ...)."""
-    return FilterOutput(**{
-        name: torch.stack([getattr(o, name) for o in outs], dim=1)
-        for name in FilterOutput.__dataclass_fields__
-    })
+        outputs (B, T, ...)). On CUDA the step replays its CUDA graph
+        (module docstring); the carry comes back as new tensors."""
+        return self.compiled.run(carry, frames, axis=1)

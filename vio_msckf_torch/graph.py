@@ -39,6 +39,18 @@ its carry back as clones, which never alias the static buffers.
     host-to-device copy, no Python value that changes between frames
     (ROADMAP ground rules; the eager step has none). A capture that fails
     raises: there is no eager fallback on CUDA.
+  * Collectives: a step sharded over a block process group (`group`,
+    parallel/) is captured with its collectives inside the graph when the
+    group is NCCL's (one rank per card), and steps eagerly when it is
+    gloo's, whose collectives stage through the host
+    (comm.capturable). The warm-up frame runs every collective of the
+    step eagerly, so the group's NCCL communicator exists before the
+    capture. Every rank of a group captures and replays the same graphs
+    in the same order, as it issues the same collectives.
+  * Capture mode: every step is captured in "thread_local" mode, so that
+    another thread of the process (NCCL's watchdog, which queries the
+    events of earlier collectives whenever a process group exists) cannot
+    invalidate the capture as it could under the default "global" mode.
 
 On a CPU tensor the runner calls fn directly: the CPU has no graphs.
 """
@@ -51,7 +63,7 @@ import weakref
 
 import torch
 
-from vio_msckf_torch import kernels
+from vio_msckf_torch import comm, kernels
 from vio_msckf_torch.tensors import tree_leaves, tree_map
 
 
@@ -121,10 +133,11 @@ def _called(handle):
 
 
 def _capture(body, stream):
-    """One call of body() captured on `stream`: (the graph, what body
-    returned; each replay rewrites those tensors)."""
+    """One call of body() captured on `stream` in "thread_local" mode
+    (module docstring): (the graph, what body returned; each replay
+    rewrites those tensors)."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
         out = body()
     return graph, out
 
@@ -204,12 +217,14 @@ class CompiledStep:
         carry, outs = step.run(carry, frames, axis)   # frames stacked on axis
 
     One run at a time: a run's carry lives in the graph's static buffers
-    until the run returns it. capture=False calls fn on every device, for
-    a step whose collectives cannot be captured (gloo)."""
+    until the run returns it. `group`: the block process group whose
+    collectives fn issues; a gloo group makes fn run eagerly on every
+    device (module docstring)."""
 
-    def __init__(self, fn, capture=True):
+    def __init__(self, fn, group=None):
         self._fn = weakref.WeakMethod(fn) if inspect.ismethod(fn) else lambda: fn
-        self.capture = capture
+        self.group = group
+        self.capture = comm.capturable(group)
         self.graphs = {}
 
     @property
@@ -235,6 +250,12 @@ class CompiledStep:
         # The static carry starts as a clone of the warm-up's new carry.
         graph = self.graphs[key] = StepGraph(self._fn, carry, frame, stream)
         return graph, out
+
+    def __call__(self, carry, frame, axis=0):
+        """One frame: run() over the frame stacked alone on `axis`, as one
+        call of a jitted step."""
+        carry, out = self.run(carry, tree_map(lambda v: v.unsqueeze(axis), frame), axis)
+        return carry, tree_map(lambda t: t.select(axis, 0), out)
 
     def run(self, carry, frames, axis=0):
         """Step over frames stacked on `axis` (0 for one sequence, 1 for

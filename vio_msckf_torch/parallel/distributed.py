@@ -15,15 +15,22 @@ reference's:
 
 The backend is the caller's: NCCL takes CUDA tensors as they are but will
 not put two ranks on one GPU; gloo runs ranks on the CPU, or several ranks
-on one GPU, its collectives staged through host memory (comm.py).
+on one GPU, its collectives staged through host memory (comm.py). A step
+sharded over NCCL is captured as a CUDA graph, one over gloo steps eagerly
+(graph.py); NCCL makes its communicators at their first collective, which
+the captured step's eager warm-up frame issues.
 """
 
+import contextlib
+import faulthandler
 import os
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -44,26 +51,31 @@ def initialize_from_env(backend=None, device="cuda"):
     n = int(os.environ.get("VIO_NUM_PROCESSES", "1"))
     if n <= 1:
         return False
+    _join(backend, device, "tcp://" + os.environ.get("VIO_COORDINATOR", "localhost:12411"),
+          n, int(os.environ["VIO_PROCESS_ID"]))
+    return True
+
+
+def _join(backend, device, init_method, world_size, rank):
+    """init_process_group; backend None picks "nccl" for a CUDA `device`
+    and "gloo" for the CPU."""
     if backend is None:
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
-    dist.init_process_group(
-        backend,
-        init_method="tcp://" + os.environ.get("VIO_COORDINATOR", "localhost:12411"),
-        world_size=n,
-        rank=int(os.environ["VIO_PROCESS_ID"]),
-    )
-    return True
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                            rank=rank)
 
 
 def start_rank(rank, nprocs, coordinator, device="cuda", backend=None):
     """A rank process's bootstrap: the VIO_* variables from its arguments,
-    its device (a CUDA device without an index: card rank % cards; one
+    its device (a CUDA device without an index: card rank % cards, so
+    one rank per card where there are as many cards as ranks; one
     intra-op thread on the CPU, where ranks share the cores), then
     `initialize_from_env`. A run of one rank (the first row of a scaling
     table) joins a group of one, which `initialize_from_env` leaves alone.
     Returns the device."""
     if nprocs < 1:
         raise SystemExit(f"a rank process needs 1 or more ranks, got {nprocs}")
+    faulthandler.register(signal.SIGUSR1, all_threads=True)   # Ranks.wait's stack dump
     os.environ.update(VIO_NUM_PROCESSES=str(nprocs), VIO_PROCESS_ID=str(rank),
                       VIO_COORDINATOR=coordinator)
     device = torch.device(device)
@@ -74,9 +86,26 @@ def start_rank(rank, nprocs, coordinator, device="cuda", backend=None):
     else:
         torch.set_num_threads(1)
     if not initialize_from_env(backend, device):
-        dist.init_process_group(backend or ("nccl" if device.type == "cuda" else "gloo"),
-                                init_method="tcp://" + coordinator, world_size=1, rank=0)
+        _join(backend, device, "tcp://" + coordinator, 1, 0)
     return device
+
+
+@contextlib.contextmanager
+def in_group():
+    """A rank's work inside its process group, which is shut down after
+    it. The work must free the CUDA graphs that hold NCCL collectives
+    first (CompiledStep.clear, or drop the model): NCCL's shutdown waits
+    for them. On an exception the rank prints the traceback and leaves at
+    once (os._exit): a shutdown would wait for peers that wait in a
+    collective for this rank, and Ranks.wait stops them."""
+    try:
+        yield
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 def make_global_mesh(n_replica=None, n_block=1, block_across_processes=False):
@@ -151,7 +180,9 @@ class Ranks:
     def wait(self, timeout):
         """Wait for every rank; returns their standard outputs. When a rank
         fails, or at the timeout, kills the others (a rank whose peer died
-        waits in a collective) and raises with the failed rank's output."""
+        waits in a collective) and raises with the failed rank's output;
+        at the timeout, with every rank's, after each rank still running
+        has printed its threads' stacks (SIGUSR1, start_rank)."""
         deadline = time.monotonic() + timeout
         try:
             while True:
@@ -164,8 +195,13 @@ class Ranks:
                 if all(c == 0 for c in codes):
                     return [self._read(r)[0] for r in range(len(self.procs))]
                 if time.monotonic() > deadline:
-                    raise RuntimeError(f"ranks still running after {timeout} s; rank 0:\n"
-                                       + "\n".join(t[-2000:] for t in self._read(0)))
+                    for p in self.procs:
+                        if p.poll() is None:
+                            p.send_signal(signal.SIGUSR1)
+                    time.sleep(2.0)
+                    raise RuntimeError(f"ranks still running after {timeout} s:\n" + "\n".join(
+                        f"rank {r}: " + "\n".join(t[-3000:] for t in self._read(r))
+                        for r in range(len(self.procs))))
                 time.sleep(0.05)
         finally:
             for p in self.procs:

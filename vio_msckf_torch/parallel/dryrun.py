@@ -8,7 +8,12 @@ The port's counterpart of __graft_entry__.py:dryrun_multichip. There one
 process compiles and runs the step over n devices; here one rank is one
 process, so `dryrun_multichip(n)` called outside a process group starts n
 rank processes of this module (which call it again inside their group)
-and waits for them.
+and waits for them. Under NCCL (one rank per card) each rank captures the
+sharded step as a CUDA graph with its collectives, the counterpart of the
+compile, and replays it, the execute; under gloo it steps eagerly twice.
+
+    python -c "from vio_msckf_torch.parallel.dryrun import dryrun_multichip; \
+               dryrun_multichip(4, backend='nccl')"     # four cards
 """
 
 import argparse
@@ -21,13 +26,15 @@ import torch.distributed as dist
 
 from vio_msckf_torch import kernels
 from vio_msckf_torch.config import euroc_config
-from vio_msckf_torch.parallel.distributed import Ranks, start_rank, make_global_batch
+from vio_msckf_torch.parallel.distributed import Ranks, in_group, make_global_batch, start_rank
 from vio_msckf_torch.parallel.multichip import make_mesh, make_multichip_engine_step
 
 
 def _rank_step(n_devices, device):
     """This rank's part: block = 2 where n is even, B = 2 sequences per
-    replica on random images; every pose must be finite."""
+    replica on random images, two calls of the replaying step (the first
+    runs the eager warm-up and captures, the second replays the graph
+    from the same carry); every pose of the second must be finite."""
     n_block = 2 if n_devices % 2 == 0 else 1
     n_replica = n_devices // n_block
     mesh = make_mesh(n_replica, n_block)
@@ -45,10 +52,15 @@ def _rank_step(n_devices, device):
         imu_dt=np.full((B, M), 0.005, np.float32),
         imu_valid=np.ones((B, M), bool),
     ), device)
-    _, out = step(eng.init_batch([{}] * (B // n_replica)), frame)
+    carry = eng.init_batch([{}] * (B // n_replica))
+    step(carry, frame)
+    _, out = step(carry, frame)
     if not np.isfinite(out.p.cpu().numpy()).all():
         raise AssertionError(f"rank {mesh.rank}: a pose is not finite")
-    return dict(n_replica=n_replica, n_block=n_block, batch=B)
+    captured = bool(eng.compiled.graphs)
+    eng.compiled.clear()            # before the group's shutdown, which waits for it
+    return dict(n_replica=n_replica, n_block=n_block, batch=B, backend=dist.get_backend(),
+                captured=captured)
 
 
 def dryrun_multichip(n_devices, device="cuda", backend=None, timeout=900):
@@ -57,10 +69,11 @@ def dryrun_multichip(n_devices, device="cuda", backend=None, timeout=900):
     full EuRoC shapes (752x480 stereo, 20-clone window, 160 features).
 
     Inside a process group of n_devices ranks this is the rank's part.
-    Outside one it starts n_devices ranks on `device` (all on the one card
-    for a device "cuda"; `backend` "gloo" lets them share it) and returns
-    {kernel: {call shape: launches}} summed over the ranks (empty on the
-    CPU)."""
+    Outside one it starts n_devices ranks on `device` (for a device
+    "cuda", rank r on card r % cards: one rank per card under "nccl",
+    the default there; `backend` "gloo" lets ranks share a card) and
+    returns {kernel: {call shape: launches}} summed over the ranks (empty
+    on the CPU)."""
     if dist.is_initialized():
         if dist.get_world_size() != n_devices:
             raise ValueError(f"need {n_devices} ranks, the group has {dist.get_world_size()}")
@@ -78,7 +91,8 @@ def dryrun_multichip(n_devices, device="cuda", backend=None, timeout=900):
                 total[name][tuple(shape)] += n
     info = json.loads(outs[0].strip().splitlines()[-1])
     print(f"dryrun_multichip ok: mesh replica={info['n_replica']} block={info['n_block']}, "
-          f"batch={info['batch']}, pose finite", flush=True)
+          f"batch={info['batch']}, {info['backend']}, "
+          f"{'captured and replayed' if info['captured'] else 'eager'}, pose finite", flush=True)
     return total
 
 
@@ -92,12 +106,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = start_rank(args.rank, args.nprocs, args.coordinator, args.device,
                         args.backend or None)
-    try:
+    with in_group():
         for fn in kernels.counters().values():
             fn.by_shape.clear()
         info = dryrun_multichip(args.nprocs, device)
-    finally:
-        dist.destroy_process_group()
     info["launches"] = kernels.launch_counts()
     print(json.dumps(info), flush=True)
     return 0

@@ -114,17 +114,21 @@ def make_multichip_filter_step(config, mesh, use_block=True, device="cuda"):
     """Filter-only step over this replica's rows (feature measurements in,
     poses out), the update sharded over the replica's block group. Returns
     (step, MSCKF); step(carry, frame) -> (carry, out), every tensor with
-    this replica's rows first."""
+    this replica's rows first. Like `jax.jit(shard_map(...))`, step
+    replays the step's CUDA graph, its collectives inside (captured at the
+    first call; eager over a gloo group, graph.py); every rank of the
+    group must call it together. The eager step is `kf.step`."""
     kf = MSCKF(config, device, block_group=mesh.block_group if use_block else None)
-    return kf.step, kf
+    return lambda carry, frame: kf.compiled(carry, frame, axis=1), kf
 
 
 def make_multichip_engine_step(config, mesh, use_block=True, device="cuda"):
     """Full-engine step (stereo images + IMU in, poses out) over this
     replica's rows; the tracker runs replicated on every block rank.
-    Returns (step, VIOEngine)."""
+    Returns (step, VIOEngine); step replays the captured engine step as
+    the filter's does, the eager step is `eng.step_batch`."""
     eng = VIOEngine(config, device, block_group=mesh.block_group if use_block else None)
-    return eng.step_batch, eng
+    return lambda carry, frame: eng.compiled(carry, frame, axis=1), eng
 
 
 def tiny_config():

@@ -11,9 +11,10 @@ simulator's feature tracks) as one batch of B; then:
 
   * the best of `--reps` whole passes, untimed first pass excluded: ms a
     step and aggregate frames/s (host clock, ending in synchronize). The
-    engine's passes are what its users run, VIOEngine.run_batch, which
-    replays the step's CUDA graph (captured in the first pass); the
-    tracker and the filter alone step eagerly;
+    engine's and the filter's passes are what their users run,
+    VIOEngine.run_batch and MSCKF.run_sequence, which replay the step's
+    CUDA graph (captured in the first pass); the tracker alone steps
+    eagerly;
   * a window of WINDOW_STEPS (5) warm steps from the middle of the sequence,
     timed without the profiler (best of `--reps`) and then run once under
     torch.profiler (CPU + CUDA activities): per device kernel its name,
@@ -26,9 +27,10 @@ simulator's feature tracks) as one batch of B; then:
     (cudaLaunchKernel, cuLaunchKernel, cudaGraphLaunch, cudaMemcpyAsync)
     and the rows of the three hand kernels (csrc/) by name, whose launches
     must equal their launch counters' over the profiled run. For the
-    engine the window runs twice: graphed (run_batch over the window:
-    a few copies and one graph launch a step) and eager (step_batch per
-    frame: the kernels the graph holds, one launch each).
+    engine and the filter the window runs twice: graphed (run_batch or
+    run_sequence over the window: a few copies and one graph launch a
+    step) and eager (the step per frame: the kernels the graph holds, one
+    launch each).
 
 The JAX script's MFU line has no counterpart: the step runs no model, and
 each hand kernel's share of its roofline bound is chip_smoke.py's. Without
@@ -39,6 +41,7 @@ import argparse
 import json
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -102,6 +105,65 @@ def hand_rows(kernels):
             for name, syms in HAND_KERNELS.items()}
 
 
+def host_syncs(step):
+    """Host synchronisations made by one call of step()."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def replay_profile(graph, frame, replays, before=None):
+    """One replay of a captured step (graph.StepGraph) on `frame`: host
+    syncs (fails unless 0); under torch.profiler the host's launch calls,
+    the device kernels and their time, the replay's span between CUDA
+    events, NCCL's kernels among them and their device time (a step
+    sharded over NCCL holds its collectives in the graph), and the hand
+    kernels' launches in the trace, which must equal what the runner adds
+    to their counters per replay; then, without the profiler, `replays`
+    replays back to back between two CUDA events and on the host clock
+    (ending in synchronize). `before()` runs just before those (a barrier
+    where the ranks of a group replay together). Every call replays the
+    graph replays + 2 times."""
+    syncs = host_syncs(lambda: graph.replay(frame))
+    if syncs:
+        raise AssertionError(f"{len(syncs)} host syncs in one replay: {sorted(set(syncs))}")
+    for w in hand.counters().values():
+        w.by_shape.clear()
+    calls, dev_ms, table, span_ms = launch_profile(lambda: graph.replay(frame))
+    traced = traced_counts(table)
+    per_replay = {k: sum(graph.launches[k].values()) for k in traced}
+    if traced != per_replay:
+        raise AssertionError(f"a replay ran {traced} hand-kernel launches, the runner counts "
+                             f"{per_replay}")
+    nccl = {k: v for k, v in table.items() if "nccl" in k.lower()}
+    if before is not None:
+        before()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(replays):
+        graph.replay(frame)
+    b.record()
+    torch.cuda.synchronize()
+    return dict(launch_calls=calls, host_calls=sum(calls.values()),
+                device_kernels=sum(v["calls"] for v in table.values()), device_ms=dev_ms,
+                span_ms=span_ms, traced=traced,
+                nccl_kernels=sum(v["calls"] for v in nccl.values()),
+                nccl_ms=sum(v["self_ms"] for v in nccl.values()), nccl_names=sorted(nccl),
+                replay_ms=a.elapsed_time(b) / replays,
+                wall_ms=(time.perf_counter() - t0) / replays * 1e3)
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="python -m vio_msckf_torch.tools.profile_ops",
                                  description=__doc__.split("\n\n")[0])
@@ -123,7 +185,8 @@ def build_model(cfg, mode, B, duration, device):
     feature tracks). Returns (fresh() -> carry, step(carry, frame) ->
     carry, run(carry, lo, hi) -> carry over frames lo..hi-1, frames
     (B, T, ...)): step is the eager step; run is the engine's run_batch
-    (the replayed graph) and, for the others, a loop of step."""
+    or the filter's run_sequence (the replayed graph) and, for the
+    tracker, a loop of step."""
     if mode == "filter":
         seqs = [bundle_frames(simulate_sequence(cfg, SimConfig(**{
             **bench.SIM, "duration": duration, "seed": 4 + b})), cfg) for b in range(B)]
@@ -133,6 +196,11 @@ def build_model(cfg, mode, B, duration, device):
         kf = MSCKF(cfg, device)
         inits = [init for _, init, _ in seqs]
         fresh, step = lambda: kf.init_batch(inits), lambda c, f: kf.step(c, f)[0]
+
+        def run(carry, lo, hi):
+            return kf.run_sequence(carry, {k: v[:, lo:hi] for k, v in frames.items()})[0]
+
+        return fresh, step, run, frames
     else:
         frames, inits, _, _ = bench.stack_workloads(
             [bench.build_workload(cfg, dict(seed=4 + b), duration=duration, device=device)
@@ -249,7 +317,7 @@ def main(argv=None):
         return c
 
     windows = {}
-    if mode == "engine":
+    if mode != "tracker":
         windows["graphed"] = window_profile(run, mid, lo, hi, args.reps, device)
     windows["eager"] = window_profile(eager, mid, lo, hi, args.reps, device)
     smi = card()
@@ -257,12 +325,12 @@ def main(argv=None):
     print(f"\n=== {mode} B={B}: {n} frames; {smi} ===")
     print(f"warm pass {best * 1e3:.1f} ms ({best * 1e3 / n:.2f} ms/step, "
           f"{B * n / best:.1f} agg fps; best of {args.reps}"
-          + ("; graphed)" if mode == "engine" else ")"))
+          + ("; graphed)" if mode != "tracker" else ")"))
     print(f"window: frames {lo}..{hi - 1}")
     for name, w in windows.items():
         print()
         report(name if name == "graphed" else "eager (the kernels the graph holds)"
-               if mode == "engine" else name, w, args.top)
+               if mode != "tracker" else name, w, args.top)
 
     if args.json:
         with open(args.json, "w") as f:
